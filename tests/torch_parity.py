@@ -1,0 +1,55 @@
+"""Parity helpers for the tests that hold orb_slam_cuda_tpu_torch against
+orb_slam_cuda_tpu: one numpy input goes to both packages, and the two
+outputs come back as numpy for comparison."""
+
+from __future__ import annotations
+
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from orb_slam_cuda_tpu_torch.utils import convert
+
+
+def to_np(x) -> np.ndarray:
+    """JAX array / torch tensor / scalar -> numpy; uint32 words viewed as
+    int32 (the port's storage of the same bits), bfloat16 widened."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    a = np.asarray(x)
+    if a.dtype == np.uint32:
+        return a.view(np.int32)
+    if a.dtype.name == "bfloat16":
+        return a.astype(np.float32)
+    return a
+
+
+def jx(a):
+    return jnp.asarray(a)
+
+
+def tt(a, dtype=None):
+    return convert.tensor(a, "cpu", dtype)
+
+
+def run_both(jax_fn, torch_fn, *np_args):
+    """Feed the same numpy arguments to both functions."""
+    return jax_fn(*[jx(a) for a in np_args]), torch_fn(*[tt(a) for a in np_args])
+
+
+def assert_same(j, t, rtol=None, atol=0.0, what=""):
+    """Exact for integer/bool outputs (rtol None), else allclose."""
+    a, b = to_np(j), to_np(t)
+    assert a.shape == b.shape, f"{what}: shape {a.shape} vs {b.shape}"
+    if rtol is None:
+        np.testing.assert_array_equal(a, b, err_msg=what)
+    else:
+        np.testing.assert_allclose(a, b, rtol=rtol, atol=atol, err_msg=what)
+
+
+def random_poses(rng, n, rot=0.3, trans=1.0):
+    """(n,4,4) float32 world->camera poses near identity."""
+    from orb_slam_cuda_tpu_torch.geometry import se3
+
+    xi = np.concatenate([rng.normal(0, trans, (n, 3)), rng.normal(0, rot, (n, 3))], 1)
+    return se3.exp(torch.as_tensor(xi.astype(np.float32))).numpy()
