@@ -2,14 +2,14 @@
 orb_slam_cuda_tpu/engine/system.py).
 
 `System(cfg, device=...)` owns the extractor, vocabulary, map state,
-tracking state machine and local mapper; every tensor it creates lives on
-`device`. Ported: `track_monocular` with `pipeline_lag=0`, two-view
-initialization, the fused tracking step, keyframe creation and local
-mapping (synchronous, or through the background queue's `lba2` and
-`map_finish` units when `async_mapping`). Not ported yet, and refused by
-the constructor: stereo/RGB-D, loop closing, the pipelined lag, device
-meshes and cluster refinement. Relocalization is not ported either: a
-lost frame is counted in `stats.n_reloc_skipped` and stays lost.
+tracking state machine, local mapper and loop closer; every tensor it
+creates lives on `device`. Ported: `track_monocular` with
+`pipeline_lag=0`, two-view initialization, the fused tracking step,
+relocalization of lost frames, keyframe creation, local mapping and loop
+closing with its chunked global BA (synchronous, or through the
+background queue's units when `async_mapping`). Not ported yet, and
+refused by the constructor: stereo/RGB-D, the pipelined lag, device
+meshes and cluster refinement.
 """
 
 from __future__ import annotations
@@ -34,8 +34,9 @@ from ..solvers import bundle_adjust as ba
 from ..solvers import initializer as init_solver
 from ..utils.timing import StageTimer
 from ..vocab import build_vocabulary
-from . import local_mapping, tracking
+from . import local_mapping, relocalization, tracking
 from .frame import FrameData, build_frame
+from .loop_closing import LoopCloser
 
 
 class Sensor(enum.Enum):
@@ -84,7 +85,6 @@ class TrackStats:
     n_lost: int = 0
     n_keyframes: int = 0
     n_reloc: int = 0
-    n_reloc_skipped: int = 0  # lost frames whose relocalization was not run
     n_kf_grows: int = 0
     n_pt_grows: int = 0
 
@@ -92,7 +92,6 @@ class TrackStats:
 def _refuse(config: SystemConfig):
     unported = {
         "sensor != MONOCULAR": config.sensor != Sensor.MONOCULAR,
-        "enable_loop_closing=True": config.enable_loop_closing,
         "pipeline_lag > 0": config.pipeline_lag > 0,
         "mesh": config.mesh is not None,
         "cluster_refine_interval > 0": config.cluster_refine_interval > 0,
@@ -167,17 +166,26 @@ class System:
         self.kf_timestamps = {}
         self.stats = TrackStats()
         self.timer = StageTimer(enabled=True)
+        self.reloc_stage_stats = {}
+        self.loop_closer = None
+        if config.enable_loop_closing:
+            self.loop_closer = LoopCloser(self.map_cfg, cam, self.vocab)
+            self.loop_closer.timer = self.timer
 
     def _sync(self):
         return self.device if self.device.type == "cuda" else None
 
     # ------------------------------------------------------------------
     def track_monocular(self, image, timestamp: float):
-        """Track one grayscale frame. Returns the 4x4 Tcw (np.ndarray) or
-        None while uninitialized/lost."""
+        """Track one grayscale frame (numpy array or tensor, on any
+        device). Returns the 4x4 Tcw (np.ndarray) or None while
+        uninitialized/lost."""
         self.timer.set_frame(self.frame_id)
+        # As the reference's synchronous path does, the previous frames'
+        # deferred mapping and loop units finish before this frame tracks.
+        self._drain_background()
         with self.timer.stage("times.csv", "orb_extract", sync=self._sync()):
-            feats = self.extractor(np.asarray(image))
+            feats = self.extractor(image)
         with self.timer.stage("times.csv", "build_frame", sync=self._sync()):
             frame = build_frame(feats, self.cam, self.vocab)
         with self.timer.stage("timesTracking.csv", "track", sync=self._sync()):
@@ -222,6 +230,11 @@ class System:
         if self.tracking_state == TrackingState.LOST or not ok:
             ref_pose = None
             pose, ok = self._relocalize(frame)
+            if ok:
+                self.stats.n_reloc += 1
+                pose2, ok = self._track_local_map(pose)
+                if ok:
+                    pose = pose2
 
         if ok:
             self.tracking_state = TrackingState.OK
@@ -368,13 +381,39 @@ class System:
         return pose2
 
     def _relocalize(self, frame: FrameData):
-        """Relocalization is not ported yet: the frame stays lost, and the
-        skipped search is counted."""
-        self.stats.n_reloc_skipped += 1
-        return None, False
+        """BoW candidates from the database, BoW matching, EPnP RANSAC and
+        the staged pose ladder; on success the frame keeps its bindings."""
+        with self.timer.stage("timesTracking.csv", "relocalize", sync=self._sync()):
+            pose, mp, ok = relocalization.relocalize(
+                self.state, self.db, frame, self.cam, self.vocab.n_words,
+                self.scale_factors, stats=self.reloc_stage_stats,
+            )
+        if not ok:
+            return None, False
+        self.last_frame = frame._replace(mp=mp)
+        return pose.cpu().numpy(), True
+
+    def _track_local_map(self, pose):
+        """TrackLocalMap after a relocalization: local keyframes and points
+        of the new bindings, projection search, pose refinement."""
+        frame = self.last_frame
+        _, pt_mask, ref_kf = tracking.assemble_local_map(self.state, frame.mp)
+        self.ref_kf = int(ref_kf)
+        pose2, mp, n_inl, _, visible = tracking.track_local_map(
+            self.state, frame, torch.as_tensor(pose, device=self.device), pt_mask, self.cam,
+            self.scale_factors, 1.0,
+        )
+        P = visible.shape[0]
+        ids = torch.arange(P, dtype=torch.int32, device=self.device)
+        self.state = map_ops.increase_visible(self.state, torch.where(visible, ids, torch.full_like(ids, -1)))
+        self.state = map_ops.increase_found(self.state, mp)
+        self.last_frame = frame._replace(mp=mp)
+        self.n_inliers_local = int(n_inl)
+        return pose2.cpu().numpy(), self.n_inliers_local >= tracking.MIN_INLIERS_LOCAL
 
     # ------------------------------------------------------------------
-    # Background queue: deferred mapping units, one pumped per frame.
+    # Background queue: deferred mapping and loop units, one pumped after
+    # each frame, the rest drained before the next frame tracks.
     def _pump_background(self, budget: int = 1):
         while budget > 0 and self._bg:
             self._run_bg_unit(self._bg.popleft())
@@ -392,6 +431,7 @@ class System:
 
     def _run_bg_unit(self, unit):
         kind = unit[0]
+        lc = self.loop_closer
         if kind == "lba2":
             with self.timer.stage("timesMapping.csv", "local_ba2", sync=self._sync()):
                 self.state = self.mapper.run_ba_round2(self.state, unit[1])
@@ -406,6 +446,31 @@ class System:
             self._record_culls(cull_log)
             if self.ref_kf not in self.kf_order:
                 self.ref_kf = self.kf_order[-1]
+        elif kind == "loop_detect":
+            with self.timer.stage("timesMapping.csv", "loop_detect", sync=self._sync()):
+                pending = lc.dispatch_detect(self.state, self.db, unit[1], self.kf_order)
+            if pending is not None:
+                self._bg.append(("loop_finish", pending))
+        elif kind == "loop_finish":
+            with self.timer.stage("timesMapping.csv", "loop_closing", sync=self._sync()):
+                self.state, self.db = lc.finish_detect(self.state, self.db, unit[1], self.kf_order)
+            if lc.gba_requested:
+                lc.gba_requested = False
+                self._bg.append(("gba_dispatch",))
+        elif kind == "gba_dispatch":
+            with self.timer.stage("timesMapping.csv", "gba_dispatch", sync=self._sync()):
+                pending = lc.dispatch_global_ba(self.state, self.kf_order, self.kf_gen,
+                                                self.mapper.mp_valid_host)
+            self._bg.append(("gba_chunk", pending))
+        elif kind == "gba_chunk":
+            # One chunk per pumped slot; a superseding loop aborts the rest.
+            with self.timer.stage("timesMapping.csv", "gba_chunk", sync=self._sync()):
+                done = lc.continue_global_ba(unit[1])
+            self._bg.append(("gba_finish", unit[1]) if done else ("gba_chunk", unit[1]))
+        elif kind == "gba_finish":
+            with self.timer.stage("timesMapping.csv", "gba_finish", sync=self._sync()):
+                self.state = lc.finish_global_ba(self.state, unit[1], self.kf_order, self.kf_gen,
+                                                 self.mapper.mp_valid_host)
         else:
             raise ValueError(f"unknown background unit {kind!r}")
 
@@ -445,6 +510,8 @@ class System:
         self.cfg.max_keyframes = new_K
         self.map_cfg = self.map_cfg._replace(max_keyframes=new_K)
         self.mapper.cfg = self.map_cfg
+        if self.loop_closer is not None:
+            self.loop_closer.cfg = self.map_cfg
         self.stats.n_kf_grows += 1
 
     def _grow_point_capacity(self):
@@ -456,6 +523,8 @@ class System:
         self.mapper.mp_valid_host = np.concatenate(
             [self.mapper.mp_valid_host, np.zeros(new_P - len(self.mapper.mp_valid_host), bool)]
         )
+        if self.loop_closer is not None:
+            self.loop_closer.cfg = self.map_cfg
         self.stats.n_pt_grows += 1
 
     def _ensure_point_headroom(self):
@@ -502,7 +571,9 @@ class System:
         self.frames_since_kf = 0
         self.stats.n_keyframes += 1
 
-        protected = set()
+        # Keyframes on loop edges are never culled.
+        lc = self.loop_closer
+        protected = {k for e in lc.loop_edges for k in e} if lc is not None else set()
         if self.cfg.async_mapping:
             with self.timer.stage("timesMapping.csv", "local_mapping", sync=self._sync()):
                 self.state, pending = self.mapper.dispatch_keyframe(
@@ -510,6 +581,8 @@ class System:
                 )
             self._bg.append(("lba2", pending))
             self._bg.append(("map_finish", pending, protected))
+            if lc is not None and len(self.kf_order) > 3:
+                self._bg.append(("loop_detect", slot))
             return
         cull_log = []
         with self.timer.stage("timesMapping.csv", "local_mapping", sync=self._sync()):
@@ -520,6 +593,9 @@ class System:
         self._record_culls(cull_log)
         if self.ref_kf not in self.kf_order:
             self.ref_kf = self.kf_order[-1]
+        if lc is not None and len(self.kf_order) > 3:
+            with self.timer.stage("timesMapping.csv", "loop_closing", sync=self._sync()):
+                self.state, self.db = lc.process(self.state, self.db, slot, self.kf_order)
 
     # ------------------------------------------------------------------
     def _append_traj(self, ts, pose, ok, ref_slot=-1, ref_pose=None):
@@ -568,6 +644,18 @@ class System:
     def tracked_ratio(self):
         return self.stats.n_tracked / max(self.stats.n_frames, 1)
 
+    def get_status(self) -> dict:
+        """Health snapshot."""
+        self._drain_background()
+        return {
+            "state": self.tracking_state.name,
+            "frames": self.stats.n_frames,
+            "tracked_ratio": round(self.tracked_ratio(), 4),
+            "keyframes": self.stats.n_keyframes,
+            "relocalizations": self.stats.n_reloc,
+            "loops_closed": self.loop_closer.n_loops_closed if self.loop_closer else 0,
+        }
+
     def reset(self):
         """Full reset: map, database, state machine."""
         self._bg.clear()
@@ -585,6 +673,13 @@ class System:
         self.mapper._next_pt_slot = 0
         self.mapper.mp_valid_host[:] = False
         self.frames_since_kf = 0
+        lc = self.loop_closer
+        if lc is not None:
+            lc.consistent_groups = []
+            lc.last_loop_kf_seen = -(10**9)
+            lc.loop_edges = []
+            lc.gba_idx += 1  # supersede any in-flight global BA
+            lc.gba_requested = False
 
     def save_trajectory_tum(self, path: str):
         """TUM format: `t tx ty tz qx qy qz qw` of Twc per tracked frame."""

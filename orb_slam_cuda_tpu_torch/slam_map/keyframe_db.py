@@ -1,7 +1,9 @@
-"""BoW keyframe database rows (torch port of the parts of
-orb_slam_cuda_tpu/slam_map/keyframe_db.py that mapping uses: the
-compacted tf-idf rows and their insert/grow/erase). Scoring and candidate
-detection wait for relocalization and loop closing."""
+"""BoW keyframe database (torch port of
+orb_slam_cuda_tpu/slam_map/keyframe_db.py): compacted tf-idf rows per
+keyframe, and queries that scatter the query BoW into one dense (W,)
+vector, then score every keyframe with one gather + min + sum. The
+candidate funnel (common words, score floor, covisibility-group
+accumulation) mirrors the reference's."""
 
 from __future__ import annotations
 
@@ -80,3 +82,52 @@ def erase(db: BowDB, slot) -> BowDB:
     weight[slot] = 0.0
     valid[slot] = False
     return BowDB(word, weight, valid)
+
+
+def dense_bow(word_u, weight_u, n_words: int):
+    """Compacted row -> dense (W,) vector (query side only)."""
+    vals = torch.where(word_u >= 0, weight_u, torch.zeros_like(weight_u))
+    out = torch.zeros((n_words,), dtype=torch.float32, device=word_u.device)
+    return out.index_add_(0, torch.clamp(word_u, min=0).long(), vals)
+
+
+def scores(db: BowDB, q_dense):
+    """(K,) L1 similarity sum_w min(v_w, q_w) of every keyframe row."""
+    q_at = q_dense[torch.clamp(db.word, min=0).long()]
+    m = torch.where(db.word >= 0, torch.minimum(db.weight, q_at), torch.zeros_like(q_at))
+    s = torch.sum(m, dim=1)
+    return torch.where(db.valid, s, torch.zeros_like(s))
+
+
+def common_words(db: BowDB, q_dense):
+    """(K,) int32 count of words shared with the query."""
+    hit = (db.word >= 0) & (q_dense > 0)[torch.clamp(db.word, min=0).long()]
+    n = torch.sum(hit, dim=1).to(torch.int32)
+    return torch.where(db.valid, n, torch.zeros_like(n))
+
+
+def detect_candidates(db: BowDB, q_dense, exclude_mask, covis_matrix, min_score=None,
+                      top_covis: int = 10):
+    """Loop/relocalization candidates: keep > 0.8 * max common words, the
+    optional score floor, then accumulate scores over each keyframe's
+    top-`top_covis` covisibility group (ties to the lower index) and keep
+    the best member of every group above 0.75 * the best group score.
+    Returns (cand_mask (K,) bool, raw scores (K,))."""
+    s = scores(db, q_dense)
+    eligible = db.valid & ~exclude_mask
+    cw = torch.where(eligible, common_words(db, q_dense), torch.zeros_like(s, dtype=torch.int32))
+    min_common = 0.8 * torch.max(cw).to(torch.float32)
+    ok = eligible & (cw.to(torch.float32) > min_common) & (cw > 0)
+    if min_score is not None:
+        ok = ok & (s >= min_score)
+
+    k = min(top_covis, s.shape[0])
+    w_top, i_top = torch.sort(covis_matrix, dim=1, descending=True, stable=True)
+    w_top, i_top = w_top[:, :k], i_top[:, :k]
+    zero = torch.zeros_like(s[i_top])
+    grp = torch.where((w_top > 0) & ok[i_top], s[i_top], zero)
+    own = torch.where(ok, s, torch.zeros_like(s))
+    acc = own + torch.sum(grp, dim=1)
+    best_in_group = torch.maximum(own, torch.max(torch.where(w_top > 0, s[i_top], zero), dim=1).values)
+    group_ok = ok & (acc > 0.75 * torch.max(acc))
+    return group_ok & (own >= best_in_group * 0.999), s

@@ -206,15 +206,30 @@ def _motions_from_h(H, K):
     return torch.stack(Rs), torch.stack(ts)
 
 
-def draw_sets(valid, n_hypotheses: int, generator: Optional[torch.Generator] = None):
-    """(NH,8) minimal sets: per hypothesis, the 8 valid rows with the
-    largest uniform keys (invalid rows never chosen when >= 8 are valid)."""
+def draw_sets(valid, n_hypotheses: int, generator: Optional[torch.Generator] = None,
+              set_size: int = 8):
+    """(NH,set_size) minimal sets: per hypothesis, the valid rows with the
+    largest uniform keys (invalid rows never chosen while enough are valid)."""
     M = valid.shape[0]
     r = torch.rand((n_hypotheses, M), generator=generator,
                    device=generator.device if generator is not None else "cpu")
     r = torch.where(valid.to(r.device)[None, :], r, torch.full_like(r, -1.0))
     order = torch.argsort(-r, dim=1, stable=True)
-    return order[:, :8].to(valid.device)
+    return order[:, :set_size].to(valid.device)
+
+
+# Minimal-set shapes (hypotheses, set size) of the RANSAC draw sites that
+# the engine seeds per call: Sim3 in loop closing, EPnP in relocalization.
+SAMPLE_SHAPES = {"sim3": (128, 3), "pnp": (512, 6)}
+
+
+def default_sampler(site: str, seed: int, valid):
+    """The engine's draws: uniform keys from a CPU generator seeded with
+    `seed`, so CPU and CUDA runs see the same sets."""
+    n, k = SAMPLE_SHAPES[site]
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(int(seed))
+    return draw_sets(valid, n, gen, set_size=k)
 
 
 def initialize_two_view(xy1, xy2, valid, K, generator=None, n_hypotheses: int = 200,

@@ -1,0 +1,108 @@
+"""Sim(3) pose-graph (essential graph) optimization (torch port of
+orb_slam_cuda_tpu/solvers/pose_graph.py).
+
+Per-edge residual r = log(S_ji o S_i o S_j^-1) with Jacobians from
+forward-mode derivatives over the two 7-dim tangents, all edges at once
+(`sim3.tangent_jacobian`, in float64, rounded to float32), then Gauss-Newton steps solved by block-Jacobi
+preconditioned CG over segment sums of the edge list. `index_add_` on
+CUDA sums in no fixed order, so results vary in their last bits there.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..geometry import sim3
+
+
+class PoseGraphProblem(NamedTuple):
+    """K vertices (Sim3 world->kf), E edges; meas_* is the measured S_ji
+    (maps i -> j); vert_fixed (K,) pins vertices."""
+
+    vert_R: torch.Tensor
+    vert_t: torch.Tensor
+    vert_s: torch.Tensor
+    vert_fixed: torch.Tensor
+    edge_i: torch.Tensor
+    edge_j: torch.Tensor
+    meas_R: torch.Tensor
+    meas_t: torch.Tensor
+    meas_s: torch.Tensor
+    edge_valid: torch.Tensor
+
+
+def relative_sim3(Si, Sj):
+    """S_ji = S_j o S_i^-1."""
+    return sim3.compose(Sj, sim3.inverse(Si))
+
+
+def _edge_residual(xi_i, xi_j, SiR, Sit, Sis, SjR, Sjt, Sjs, MR, Mt, Ms):
+    """r = log(S_ji o (exp(xi_i) o S_i) o (exp(xi_j) o S_j)^-1) in R^7."""
+    Si_u = sim3.compose(sim3.exp(xi_i), (SiR, Sit, Sis))
+    Sj_u = sim3.compose(sim3.exp(xi_j), (SjR, Sjt, Sjs))
+    return sim3.log(sim3.compose((MR, Mt, Ms), sim3.compose(Si_u, sim3.inverse(Sj_u))))
+
+
+def _segsum(n, idx, vals):
+    out = torch.zeros((n,) + vals.shape[1:], dtype=vals.dtype, device=vals.device)
+    return out.index_add_(0, idx, vals)
+
+
+def optimize_pose_graph(problem: PoseGraphProblem, gn_iters: int = 20, cg_iters: int = 30):
+    """Returns the optimized (R (K,3,3), t (K,3), s (K,))."""
+    K = problem.vert_R.shape[0]
+    E = problem.edge_i.shape[0]
+    dev = problem.vert_R.device
+    ei = torch.clamp(problem.edge_i, min=0).long()
+    ej = torch.clamp(problem.edge_j, min=0).long()
+    free = ~problem.vert_fixed
+    w_e = problem.edge_valid.to(torch.float32)
+    meas = (problem.meas_R, problem.meas_t, problem.meas_s)
+    eye7 = torch.eye(7, dtype=torch.float32, device=dev)
+
+    def safe(x):
+        return torch.where(torch.abs(x) < 1e-12, torch.full_like(x, 1e-12), x)
+
+    R, t, s = problem.vert_R, problem.vert_t, problem.vert_s
+    for _ in range(gn_iters):
+        zeros = torch.zeros((E, 7), dtype=torch.float32, device=dev)
+        args = (zeros, zeros, R[ei], t[ei], s[ei], R[ej], t[ej], s[ej]) + meas
+        r = _edge_residual(*args)
+        a64 = tuple(a.double() for a in args[2:])
+        Ji = sim3.tangent_jacobian(lambda x: _edge_residual(x, zeros.double(), *a64), zeros).float()
+        Jj = sim3.tangent_jacobian(lambda x: _edge_residual(zeros.double(), x, *a64), zeros).float()
+        b = (_segsum(K, ei, torch.einsum("eki,ek,e->ei", Ji, r, w_e))
+             + _segsum(K, ej, torch.einsum("eki,ek,e->ei", Jj, r, w_e)))
+        Hd = (_segsum(K, ei, torch.einsum("eki,ekj,e->eij", Ji, Ji, w_e))
+              + _segsum(K, ej, torch.einsum("eki,ekj,e->eij", Jj, Jj, w_e)))
+        Minv = torch.linalg.inv(Hd + 1e-6 * eye7)
+        Minv = torch.where(free[:, None, None], Minv, torch.zeros_like(Minv))
+        fr = free[:, None]
+
+        def matvec(x):
+            x = torch.where(fr, x, torch.zeros_like(x))
+            ye = torch.einsum("eki,ei->ek", Ji, x[ei]) + torch.einsum("eki,ei->ek", Jj, x[ej])
+            y = (_segsum(K, ei, torch.einsum("eki,ek,e->ei", Ji, ye, w_e))
+                 + _segsum(K, ej, torch.einsum("eki,ek,e->ei", Jj, ye, w_e)))
+            y = y + 1e-8 * x
+            return torch.where(fr, y, torch.zeros_like(y))
+
+        rc = torch.where(fr, -b, torch.zeros_like(b))
+        x = torch.zeros_like(rc)
+        zc = torch.einsum("kij,kj->ki", Minv, rc)
+        pc = zc
+        rz = torch.sum(rc * zc)
+        for _ in range(cg_iters):
+            Ap = matvec(pc)
+            alpha = rz / safe(torch.sum(pc * Ap))
+            x = x + alpha * pc
+            rc = rc - alpha * Ap
+            zc = torch.einsum("kij,kj->ki", Minv, rc)
+            rz_new = torch.sum(rc * zc)
+            pc = zc + (rz_new / safe(rz)) * pc
+            rz = rz_new
+        x = torch.where(fr, x, torch.zeros_like(x))
+        R, t, s = sim3.compose(sim3.exp(x), (R, t, s))
+    return R, t, s

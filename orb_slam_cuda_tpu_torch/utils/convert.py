@@ -16,6 +16,8 @@ from ..frontend.extractor import Features
 from ..geometry.camera import Camera
 from ..slam_map.keyframe_db import BowDB
 from ..slam_map.state import MapState
+from ..solvers.bundle_adjust import BAProblem
+from ..solvers.pose_graph import PoseGraphProblem
 from ..vocab.vocabulary import Vocabulary
 
 
@@ -27,7 +29,7 @@ def tensor(a, device="cpu", dtype=None) -> torch.Tensor:
         arr = arr.view(np.int32)
     elif arr.dtype.name == "bfloat16":
         arr = arr.astype(np.float32)
-    t = torch.as_tensor(np.ascontiguousarray(arr).copy(), device=device)
+    t = torch.as_tensor(np.array(arr, order="C"), device=device)  # keeps 0-d shapes
     return t if dtype is None else t.to(dtype)
 
 
@@ -68,3 +70,26 @@ def frame_data(frame, device="cpu") -> FrameData:
 
 def features(feats, device="cpu") -> Features:
     return _named(Features, feats, device)
+
+
+def sim3_triple(S, device="cpu"):
+    """(R, t, s) of arrays -> the port's Sim3 triple of tensors."""
+    return tuple(tensor(a, device, torch.float32) for a in S)
+
+
+def pose_graph_problem(problem, device="cpu") -> PoseGraphProblem:
+    return _named(PoseGraphProblem, problem, device)
+
+
+def ba_problem(problem, device="cpu") -> BAProblem:
+    return _named(BAProblem, problem, device)
+
+
+def loop_closer_state(src, dst):
+    """Copy the loop closer's host state (consistency groups, loop edges,
+    counters) from the reference's LoopCloser onto the port's."""
+    dst.consistent_groups = [(set(int(k) for k in g), int(c)) for g, c in src.consistent_groups]
+    dst.loop_edges = [(int(a), int(b)) for a, b in src.loop_edges]
+    for name in ("kf_seen", "last_loop_kf_seen", "n_loops_closed", "gba_idx", "gba_requested"):
+        setattr(dst, name, type(getattr(dst, name))(getattr(src, name)))
+    return dst

@@ -3,10 +3,12 @@ without OpenCV (port of the planar-scene parts of
 orb_slam_cuda_tpu/utils/synthetic.py).
 
 The texture draws from the generator in the reference's order (same
-rectangles); the Gaussian blurs are scipy's with reflect-101 borders and
-the warp is an inverse-homography bilinear sample with coordinates
-quantized to 1/32 px, as cv2.warpPerspective does. Pixels agree with the
-OpenCV renderer to within a gray level or two, not bit for bit.
+rectangles); the Gaussian blurs are scipy's with reflect-101 borders.
+`PlanarScene.render` runs in torch, in float64, on a given device: an
+inverse-homography bilinear sample with coordinates quantized to 1/32 px,
+as cv2.warpPerspective does, so pixels agree with the OpenCV renderer to
+within a gray level or two, not bit for bit; a CUDA render equals the CPU
+render. The per-plane 3x3 algebra stays on the host in numpy.
 """
 
 from __future__ import annotations
@@ -43,48 +45,67 @@ class Plane:
         self.ev = np.asarray(ev, np.float64)
         self.tex = tex
         self.scale = float(scale)
+        self._tex_on = {}
+
+    def texture_on(self, device) -> torch.Tensor:
+        """The texture as a flat float32 tensor on `device` (cached)."""
+        key = str(device)
+        if key not in self._tex_on:
+            self._tex_on[key] = torch.as_tensor(self.tex, device=device).to(torch.float32).reshape(-1)
+        return self._tex_on[key]
 
 
-def _source_coords(H, width, height):
-    """Texture coordinates of every output pixel under dst = H src."""
-    Hinv = np.linalg.inv(H)
-    us, vs = np.meshgrid(np.arange(width, dtype=np.float64), np.arange(height, dtype=np.float64))
-    X = Hinv[0, 0] * us + Hinv[0, 1] * vs + Hinv[0, 2]
-    Y = Hinv[1, 0] * us + Hinv[1, 1] * vs + Hinv[1, 2]
-    W = Hinv[2, 0] * us + Hinv[2, 1] * vs + Hinv[2, 2]
-    with np.errstate(divide="ignore"):
-        W = np.where(W != 0, 1.0 / W, 0.0)
+def _source_coords(Hinv, us, vs):
+    """Texture coordinates of every output pixel under dst = H src, from
+    the host-side inverse homography (float64 pixel grids in, out)."""
+    X = Hinv[0][0] * us + Hinv[0][1] * vs + Hinv[0][2]
+    Y = Hinv[1][0] * us + Hinv[1][1] * vs + Hinv[1][2]
+    W = Hinv[2][0] * us + Hinv[2][1] * vs + Hinv[2][2]
+    W = torch.where(W != 0, 1.0 / W, torch.zeros_like(W))
     lim = float(2**28)
-    return np.clip(X * W, -lim, lim), np.clip(Y * W, -lim, lim)
+    return torch.clamp(X * W, -lim, lim), torch.clamp(Y * W, -lim, lim)
 
 
-def warp_bilinear(tex, H, width, height):
-    """Bilinear inverse warp with a zero border (uint8 result)."""
-    th, tw = tex.shape
-    sx, sy = _source_coords(H, width, height)
-    qx = np.rint(sx * 32).astype(np.int64)
-    qy = np.rint(sy * 32).astype(np.int64)
+def _warp(tex, th: int, tw: int, sx, sy):
+    """Bilinear inverse warp with a zero border, coordinates quantized to
+    1/32 px (uint8 result), and the nearest-neighbour coverage mask: True
+    where the rounded source pixel lies inside the texture."""
+    qx = torch.round(sx * 32).to(torch.int64)
+    qy = torch.round(sy * 32).to(torch.int64)
     x0, y0 = qx >> 5, qy >> 5
-    ax = (qx & 31).astype(np.float32) / 32.0
-    ay = (qy & 31).astype(np.float32) / 32.0
-    src = tex.astype(np.float32)
+    ax = (qx & 31).to(torch.float32) / 32.0
+    ay = (qy & 31).to(torch.float32) / 32.0
 
     def tap(yy, xx):
         inside = (yy >= 0) & (yy < th) & (xx >= 0) & (xx < tw)
-        return np.where(inside, src[np.clip(yy, 0, th - 1), np.clip(xx, 0, tw - 1)], 0.0)
+        val = tex[torch.clamp(yy, 0, th - 1) * tw + torch.clamp(xx, 0, tw - 1)]
+        return torch.where(inside, val, torch.zeros_like(val))
 
     val = ((1 - ay) * ((1 - ax) * tap(y0, x0) + ax * tap(y0, x0 + 1))
            + ay * ((1 - ax) * tap(y0 + 1, x0) + ax * tap(y0 + 1, x0 + 1)))
-    return np.clip(np.rint(val), 0, 255).astype(np.uint8)
+    warped = torch.clamp(torch.round(val), 0, 255).to(torch.uint8)
+    x, y = torch.round(sx), torch.round(sy)
+    covered = (x >= 0) & (x < tw) & (y >= 0) & (y < th)
+    return warped, covered
 
 
-def warp_coverage(shape, H, width, height):
-    """Nearest-neighbour inverse warp of an all-ones mask: True where the
-    rounded source pixel lies inside the texture."""
-    th, tw = shape
-    sx, sy = _source_coords(H, width, height)
-    x, y = np.rint(sx), np.rint(sy)
-    return (x >= 0) & (x < tw) & (y >= 0) & (y < th)
+def _out_of_view(K, eu_c, ev_c, p0_c, plane, width: int, height: int) -> bool:
+    """True when no pixel can see the plane: its texture rectangle, grown
+    by one texel, lies wholly behind the 0.05 m depth floor or wholly
+    beyond one image border. Depth is affine over the rectangle, so the
+    corners bound it."""
+    th, tw = plane.tex.shape
+    s = plane.scale
+    corners = np.array([p0_c + a * s * eu_c + b * s * ev_c
+                        for a in (-1.0, tw) for b in (-1.0, th)])
+    z = corners[:, 2]
+    if z.max() <= 0.04:
+        return True
+    if z.min() <= 0.04:
+        return False
+    u = K[0, 0] * corners[:, 0] / z + K[0, 2]
+    v = K[1, 1] * corners[:, 1] / z + K[1, 2]
+    return bool(u.max() < -1 or u.min() > width or v.max() < -1 or v.min() > height)
 
 
 class PlanarScene:
@@ -106,17 +127,22 @@ class PlanarScene:
                       ev=[0, 1.0, 0], tex=tex2, scale=2 * extent / tex_size)
         return PlanarScene([p_far, p_near])
 
-    def render(self, K, Tcw, width: int, height: int):
-        """Grayscale uint8 (height,width) from world->cam pose Tcw. Each
-        plane's texture->image map is H = K [R eu, R ev, R origin + t]
-        diag(scale, scale, 1); ray-plane depths z-order the planes."""
+    def render(self, K, Tcw, width: int, height: int, device="cpu"):
+        """Grayscale (height,width) torch.uint8 on `device` from world->cam
+        pose Tcw, computed in float64 there. Each plane's texture->image
+        map is H = K [R eu, R ev, R origin + t] diag(scale, scale, 1);
+        ray-plane depths z-order the planes."""
+        dev = torch.device(device)
+        f64 = torch.float64
         K = np.asarray(K, np.float64)
         Tcw = np.asarray(Tcw, np.float64)
         R, t = Tcw[:3, :3], Tcw[:3, 3]
-        out = np.zeros((height, width), np.uint8)
-        depth = np.full((height, width), np.inf)
-        us, vs = np.meshgrid(np.arange(width), np.arange(height))
-        rays = np.stack([us, vs, np.ones_like(us)], axis=-1) @ np.linalg.inv(K).T
+        Kinv = np.linalg.inv(K)
+        vs, us = torch.meshgrid(torch.arange(height, dtype=f64, device=dev),
+                                torch.arange(width, dtype=f64, device=dev), indexing="ij")
+        rays = [Kinv[j, 0] * us + Kinv[j, 1] * vs + Kinv[j, 2] for j in range(3)]
+        out = torch.zeros((height, width), dtype=torch.uint8, device=dev)
+        depth = torch.full((height, width), float("inf"), dtype=f64, device=dev)
         for plane in self.planes:
             eu_c = R @ plane.eu
             ev_c = R @ plane.ev
@@ -126,18 +152,17 @@ class PlanarScene:
             if nn < 1e-12:
                 continue
             n = n / nn
-            denom = rays @ n
-            with np.errstate(divide="ignore", invalid="ignore"):
-                lam = (n @ p0_c) / denom
-            lam = np.where(np.abs(denom) < 1e-9, np.inf, lam)
             H = K @ np.stack([eu_c * plane.scale, ev_c * plane.scale, p0_c], axis=1)
-            if abs(np.linalg.det(H)) < 1e-12:
+            if abs(np.linalg.det(H)) < 1e-12 or _out_of_view(K, eu_c, ev_c, p0_c, plane, width, height):
                 continue
-            warped = warp_bilinear(plane.tex, H, width, height)
-            covered = warp_coverage(plane.tex.shape, H, width, height)
+            denom = rays[0] * n[0] + rays[1] * n[1] + rays[2] * n[2]
+            lam = torch.where(torch.abs(denom) < 1e-9, torch.full_like(denom, float("inf")),
+                              float(n @ p0_c) / denom)
+            sx, sy = _source_coords(np.linalg.inv(H), us, vs)
+            warped, covered = _warp(plane.texture_on(dev), *plane.tex.shape, sx, sy)
             visible = covered & (lam > 0.05) & (lam < depth)
-            out = np.where(visible, warped, out)
-            depth = np.where(visible, lam, depth)
+            out = torch.where(visible, warped, out)
+            depth = torch.where(visible, lam, depth)
         return out
 
 
@@ -153,4 +178,62 @@ def orbit_trajectory(n_frames: int, radius: float = 0.4, depth_amp: float = 0.15
         yaw = yaw_amp * np.sin(2 * np.pi * s)
         xi = torch.as_tensor(np.array([tx, ty, tz, 0.0, yaw, 0.0], np.float32))
         poses.append(se3.exp(xi).numpy().astype(np.float64))
+    return poses
+
+
+def room_scene(rng, half_size: float = 8.0, tex_size: int = 1024, n_walls: int = 4):
+    """A regular-polygon room of textured walls (camera inside);
+    `half_size` is the apothem."""
+    L = half_size
+    half_w = L * np.tan(np.pi / n_walls)
+    scale = 2 * L / tex_size  # walls are 2L tall
+    tex_w = max(64, int(round(tex_size * half_w / L)))
+    ev = np.array([0.0, 1.0, 0.0])  # y down
+    walls = []
+    for k in range(n_walls):
+        phi = 2 * np.pi * k / n_walls
+        d = np.array([np.sin(phi), 0.0, np.cos(phi)])  # outward normal
+        eu = np.array([np.cos(phi), 0.0, -np.sin(phi)])  # wall tangent
+        origin = L * d - half_w * eu - L * ev
+        walls.append(Plane(origin, eu, ev, make_texture(tex_size, tex_w, rng), scale))
+    return PlanarScene(walls)
+
+
+def ring_obstacles(rng, n: int, ring_radius: float, height: float = 4.0,
+                   width: float = 6.0, tex_size: int = 256, yaw_jitter: float = 0.4):
+    """Billboard planes on a ring: roadside structures that give features
+    a KITTI-like lifetime of a few seconds."""
+    planes = []
+    for k in range(n):
+        phi = 2 * np.pi * (k + rng.uniform(-0.3, 0.3)) / n
+        r = ring_radius * rng.uniform(0.92, 1.08)
+        center = np.array([r * np.sin(phi), 0.0, -r * np.cos(phi)])
+        yaw = phi + rng.uniform(-yaw_jitter, yaw_jitter)
+        eu = np.array([np.cos(yaw), 0.0, -np.sin(yaw)])
+        ev = np.array([0.0, 1.0, 0.0])
+        w = width * rng.uniform(0.7, 1.4)
+        h = height * rng.uniform(0.7, 1.3)
+        scale = h / tex_size
+        tex_w = max(32, int(round(w / scale)))
+        origin = center - (w / 2) * eu - (h / 2) * ev
+        planes.append(Plane(origin, eu, ev, make_texture(tex_size, tex_w, rng), scale))
+    return planes
+
+
+def circuit_trajectory(n_frames: int, radius: float = 5.0, laps: float = 1.15,
+                       start: float = 0.0):
+    """KITTI-style circuit: the camera rides a circle of `radius` around
+    the room centre looking forward along the tangent, for `laps` laps
+    (world->cam poses Tcw)."""
+    poses = []
+    total = 2 * np.pi * laps
+    for i in range(n_frames):
+        th = 2 * np.pi * start + total * i / max(n_frames - 1, 1)
+        c = np.array([radius * np.sin(th), 0.0, -radius * np.cos(th)])
+        yaw = th + np.pi / 2
+        Rcw = se3.so3_exp(torch.as_tensor(np.array([0.0, yaw, 0.0], np.float32))).numpy().T
+        T = np.eye(4)
+        T[:3, :3] = Rcw
+        T[:3, 3] = -Rcw @ c
+        poses.append(T)
     return poses

@@ -53,3 +53,22 @@ def random_poses(rng, n, rot=0.3, trans=1.0):
 
     xi = np.concatenate([rng.normal(0, trans, (n, 3)), rng.normal(0, rot, (n, 3))], 1)
     return se3.exp(torch.as_tensor(xi.astype(np.float32))).numpy()
+
+
+def jax_sets(seed: int, valid, n_hyp: int, k: int) -> np.ndarray:
+    """The minimal sets the reference draws from PRNGKey(seed): split into
+    n_hyp keys, one uniform key per row, invalid rows at -1, the k largest."""
+    import jax
+
+    keys = jax.random.split(jax.random.PRNGKey(int(seed)), n_hyp)
+    v = jnp.asarray(np.asarray(to_np(valid), bool))
+    draw = lambda kk: jnp.argsort(-jnp.where(v, jax.random.uniform(kk, v.shape), -1.0))[:k]  # noqa: E731
+    return np.array(jax.vmap(draw)(keys))
+
+
+def jax_sampler(site: str, seed: int, valid):
+    """A port sampler that reproduces the reference's draws at each site."""
+    from orb_slam_cuda_tpu_torch.solvers.initializer import SAMPLE_SHAPES
+
+    n, k = SAMPLE_SHAPES[site]
+    return torch.as_tensor(jax_sets(seed, valid, n, k), device=valid.device)
