@@ -23,6 +23,7 @@ from ..slam_map import MapConfig, MapState, keyframe_db
 from ..slam_map import ops as map_ops
 from ..slam_map import state as mstate
 from ..solvers import bundle_adjust as ba
+from ..utils.device import resolve as resolve_device
 
 
 class PendingMapping:
@@ -386,10 +387,10 @@ class LocalMapper:
 
     def __init__(self, cfg: MapConfig, cam: Camera, n_triangulate_neighbors=20,
                  n_fuse_neighbors=40, lba_local=16, lba_fixed=8, lba_points=4096,
-                 kf_cull_redundancy=0.9, device="cpu"):
+                 kf_cull_redundancy=0.9, device="cuda"):
         self.cfg = cfg
         self.cam = cam
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.n_tri_nb = n_triangulate_neighbors
         self.n_fuse_nb = max(n_fuse_neighbors, n_triangulate_neighbors)
         self.kf_cull_redundancy = kf_cull_redundancy

@@ -1,9 +1,10 @@
 """System facade, monocular (torch port of the monocular path of
 orb_slam_cuda_tpu/engine/system.py).
 
-`System(cfg, device=...)` owns the extractor, vocabulary, map state,
-tracking state machine, local mapper and loop closer; every tensor it
-creates lives on `device`. Ported: `track_monocular` with
+`System(cfg)` owns the extractor, vocabulary, map state, tracking state
+machine, local mapper and loop closer; every tensor it creates lives on
+`device`, the card unless the caller passes `device="cpu"` (with no card
+and no argument the constructor raises). Ported: `track_monocular` with
 `pipeline_lag=0`, two-view initialization, the fused tracking step,
 relocalization of lost frames, keyframe creation, local mapping and loop
 closing with its chunked global BA (synchronous, or through the
@@ -32,6 +33,7 @@ from ..slam_map import ops as map_ops
 from ..slam_map import state as mstate
 from ..solvers import bundle_adjust as ba
 from ..solvers import initializer as init_solver
+from ..utils.device import resolve as resolve_device
 from ..utils.timing import StageTimer
 from ..vocab import build_vocabulary
 from . import local_mapping, relocalization, tracking
@@ -114,10 +116,10 @@ def synthetic_vocabulary(vocab_words: int, seed: int = 0):
 class System:
     """End-to-end monocular SLAM engine on one torch device."""
 
-    def __init__(self, config: SystemConfig, vocab=None, seed: int = 0, device="cpu"):
+    def __init__(self, config: SystemConfig, vocab=None, seed: int = 0, device="cuda"):
         _refuse(config)
         self.cfg = config
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         cam = config.camera
         assert cam is not None, "SystemConfig.camera required"
         self.cam = cam

@@ -2,8 +2,10 @@
 -> blur -> binned rBRIEF (torch port of
 orb_slam_cuda_tpu/frontend/extractor.py).
 
-On a CUDA tensor every level's FAST scores come from the hand-written
-kernel (ops/fast_kernel.py); on a CPU tensor from its plain version.
+On a CUDA tensor the corner maps of all pyramid levels (FAST at both
+thresholds, NMS, the per-cell choice, the keypoint border) come from one
+launch of the hand-written kernel (ops/fast_kernel.py); on a CPU tensor
+from its plain version.
 The binned rBRIEF gathers the 512 rotated pattern samples straight from
 the blurred patch (the TPU's one-hot matmul exists only for the MXU) and
 rounds each sample to bf16 before comparing, as the reference does.
@@ -21,10 +23,10 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import fast_kernel, hamming
+from ..utils.device import resolve as resolve_device
 from . import fast, image_ops
 
-_REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-_PATTERN_PATH = os.path.join(_REPO, "orb_slam_cuda_tpu", "frontend", "brief_pattern_31.npy")
+_PATTERN_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "brief_pattern_31.npy")
 HALF_PATCH = 15  # IC-angle circular patch radius
 EDGE_THRESHOLD = 19  # keypoint exclusion border
 DESC_PATCH = 39  # covers rotated BRIEF offsets (max pattern radius 18.4)
@@ -74,8 +76,8 @@ class Features(NamedTuple):
 
 
 def load_brief_pattern() -> np.ndarray:
-    """(256,4) int8 canonical ORB pattern, read from the reference package's
-    data file by path."""
+    """(256,4) int8 canonical ORB pattern, from this package's own copy of
+    the data file."""
     return np.load(_PATTERN_PATH)
 
 
@@ -135,15 +137,15 @@ def topk_stable(x, k: int):
     return v[..., :k], i[..., :k]
 
 
-def _select_spatial_topk(score, quota: int, border: int):
+def _select_spatial_topk(score, quota: int, border: int = 0):
     """Grid-bucketed spatial top-K: order candidates by (per-bin rank,
-    -score) and keep `quota`. Returns (ys, xs, scores, valid), each (quota,)."""
+    -score) and keep `quota`. Returns (ys, xs, scores, valid), each (quota,).
+    `border` > 0 zeroes that border of `score` first; the extractor passes
+    maps whose border is already zeroed."""
     h, w = score.shape
     dev = score.device
-    ys_g = torch.arange(h, device=dev)[:, None]
-    xs_g = torch.arange(w, device=dev)[None, :]
-    inb = (ys_g >= border) & (ys_g < h - border) & (xs_g >= border) & (xs_g < w - border)
-    score = torch.where(inb, score, torch.zeros_like(score))
+    if border > 0:
+        score = fast.border_mask(score, border)
 
     bin_size = int(np.clip(round(math.sqrt(h * w / max(quota, 1))), 16, 64))
     rank_depth = 4
@@ -206,13 +208,19 @@ def _rbrief_binned(patches_flat, angle_deg, rot_index, nbins: int):
 class ORBExtractor:
     """Extraction for a fixed image size on one device."""
 
-    def __init__(self, config: ExtractorConfig, height: int, width: int, device="cpu"):
+    def __init__(self, config: ExtractorConfig, height: int, width: int, device="cuda"):
         if config.rotation_bins <= 0:
             raise NotImplementedError("continuous-rotation rBRIEF (rotation_bins=0) is not ported")
         self.config = config
         self.height = height
         self.width = width
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
+        # One buffer for the corner maps of all levels, reused every frame:
+        # the maps are consumed within the `_extract_impl` call that fills them.
+        self._corner_maps = fast_kernel.pyramid_buffers(
+            image_ops.pyramid_shapes(height, width, config.n_levels, config.scale_factor),
+            self.device,
+        )
         self.rot_index = torch.as_tensor(
             build_rotation_index(load_brief_pattern(), config.rotation_bins),
             device=self.device,
@@ -232,12 +240,12 @@ class ORBExtractor:
         quotas = cfg.features_per_level()
         scales = cfg.scale_factors()
         uts, ress, octs, vals, praws, pblurs = [], [], [], [], [], []
-        for lvl, (img_l, quota, scale) in enumerate(zip(levels, quotas, scales)):
-            raw_hi, raw_lo = fast_kernel.fast_score_pair(
-                img_l.contiguous(), cfg.ini_th_fast, cfg.min_th_fast
-            )
-            score = fast.two_threshold_cell_select(fast.nms3x3(raw_hi), fast.nms3x3(raw_lo))
-            ys, xs, resp, ok = _select_spatial_topk(score, quota, EDGE_THRESHOLD)
+        scores = fast_kernel.fast_corners_pyramid(
+            [lv.contiguous() for lv in levels], cfg.ini_th_fast, cfg.min_th_fast,
+            border=EDGE_THRESHOLD, out=self._corner_maps,
+        )
+        for lvl, (img_l, score, quota, scale) in enumerate(zip(levels, scores, quotas, scales)):
+            ys, xs, resp, ok = _select_spatial_topk(score, quota)
             blurred = image_ops.separable_gaussian(img_l, 7, 2.0)
             praws.append(_extract_patches(img_l, ys, xs).reshape(quota, -1))
             pblurs.append(_extract_patches(blurred, ys, xs).reshape(quota, -1))

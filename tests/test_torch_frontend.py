@@ -1,5 +1,6 @@
 """Parity of the port's front end (image ops, FAST, extractor) with the JAX
-package. Tolerances: FAST scores, NMS and the cell select exact; pyramid
+package. Tolerances: FAST scores, NMS, the cell select and the fused
+corner map (`fast_corners_plain`) exact; pyramid
 and blur rtol 1e-5; extractor at 640x480 exact keypoints and octaves at
 level 0, angles within 1e-3 degrees, descriptor bits exact or traced to a
 bf16 rounding tie (< 1e-4 of all bits), >= 95% identical rows overall.
@@ -62,6 +63,47 @@ def test_nms_and_cell_select_exact(textures):
                     tfast.two_threshold_cell_select(tt(hi), tt(lo), cell), what="cell select")
 
 
+def _jax_corner_map(img, th_hi, th_lo, cell, border):
+    """The reference's composition: the Pallas kernel in interpret mode,
+    NMS of each map, the cell choice, then the border mask that heads
+    its _select_spatial_topk."""
+    from orb_slam_cuda_tpu.ops.pallas_fast import fast_score_pallas
+
+    hi, lo = fast_score_pallas(jnp.asarray(img), th_hi, th_lo, interpret=True)
+    score = jfast.two_threshold_cell_select(jfast.nms3x3(hi), jfast.nms3x3(lo), cell)
+    h, w = img.shape
+    ys = jnp.arange(h)[:, None]
+    xs = jnp.arange(w)[None, :]
+    inb = (ys >= border) & (ys < h - border) & (xs >= border) & (xs < w - border)
+    return jnp.where(inb, score, 0.0)
+
+
+@pytest.fixture(scope="module")
+def ragged():
+    """75x121: neither side a multiple of the cell, so the last row and
+    column of cells are ragged."""
+    rng = np.random.default_rng(3)
+    return jsyn.make_texture(75, 121, rng, n_blobs=60).astype(np.float32)
+
+
+@pytest.mark.parametrize("cell,border", [(32, 19), (32, 0), (30, 19), (16, 5)])
+def test_fast_corners_plain_matches_reference_composition(ragged, cell, border):
+    want = _jax_corner_map(ragged, 20.0, 7.0, cell, border)
+    got = tfast.fast_corners_plain(tt(ragged), 20.0, 7.0, cell, border)
+    assert int((to_np(got) > 0).sum()) > 0
+    assert_same(want, got, what=f"corner map cell {cell} border {border}")
+
+
+def test_fast_corners_pyramid_on_cpu_is_plain_per_level(textures):
+    levels = timg.build_pyramid(tt(textures["qvga"]), 4, 1.2)
+    before = fast_kernel.launches
+    maps = fast_kernel.fast_corners_pyramid(levels, 20.0, 7.0, 32, 19)
+    assert fast_kernel.launches == before
+    assert len(maps) == len(levels)
+    for lv, m in zip(levels, maps):
+        assert_same(_jax_corner_map(to_np(lv), 20.0, 7.0, 32, 19), m, what="pyramid level map")
+
+
 def test_pyramid_and_blur(textures):
     img = textures["qvga"]
     assert timg.pyramid_shapes(240, 320, 8, 1.2) == jimg.pyramid_shapes(240, 320, 8, 1.2)
@@ -84,6 +126,32 @@ def test_spatial_topk_ties():
             assert_same(a, b, what=what)
 
 
+def test_brief_pattern_is_the_ports_own_copy(monkeypatch):
+    """The port reads its own copy of the rBRIEF pattern, byte for byte the
+    reference's, and opens no file of the reference package."""
+    import builtins
+    import os
+
+    ref_dir = os.path.dirname(os.path.abspath(jex.__file__))
+    port_dir = os.path.dirname(os.path.abspath(tex.__file__))
+    name = "brief_pattern_31.npy"
+    with open(os.path.join(ref_dir, name), "rb") as f, open(os.path.join(port_dir, name), "rb") as g:
+        assert f.read() == g.read()
+    opened = []
+    real_open = builtins.open
+
+    def spy(file, *a, **kw):
+        opened.append(os.path.abspath(file) if isinstance(file, (str, os.PathLike)) else file)
+        return real_open(file, *a, **kw)
+
+    monkeypatch.setattr(builtins, "open", spy)
+    tex.ORBExtractor(tex.ExtractorConfig(n_features=100), 120, 160, device="cpu")
+    assert os.path.join(port_dir, name) in opened
+    ref_pkg = os.path.dirname(ref_dir) + os.sep
+    assert not [p for p in opened if isinstance(p, str) and p.startswith(ref_pkg)]
+    np.testing.assert_array_equal(tex.load_brief_pattern(), np.load(os.path.join(ref_dir, name)))
+
+
 @pytest.fixture(scope="module")
 def extracted():
     rng = np.random.default_rng(7)
@@ -92,7 +160,7 @@ def extracted():
     tcfg = tex.ExtractorConfig(n_features=1000)
     assert tuple(tcfg.features_per_level()) == tuple(jcfg.features_per_level())
     j = jex.ORBExtractor(jcfg, 480, 640)(img)
-    t = tex.ORBExtractor(tcfg, 480, 640)(img)
+    t = tex.ORBExtractor(tcfg, 480, 640, device="cpu")(img)
     return img, j, t
 
 

@@ -1,10 +1,11 @@
 """Parity of the port's geometry (se3, camera, triangulate) with the JAX
 package, rtol 1e-5 on float32 outputs; plus the import boundary: the port
 never imports jax, the reference package or OpenCV (absent on the card's
-machine)."""
+machine), and names no path into the reference package."""
 
 import ast
 import os
+import re
 
 import numpy as np
 import pytest
@@ -148,20 +149,52 @@ def _imported_modules(path):
             yield node.module
 
 
+_REFERENCE_DIR = re.compile(r"(^|[/\\])orb_slam_cuda_tpu([/\\]|$)")
+_CITATION = re.compile(r":\d+$")  # "file:line", as the kernel table cites the TPU kernel
+
+
+def _reference_path_strings(path):
+    """String constants, docstrings apart, that hold the reference package's
+    directory as a path component: the stuff of a path built at run time."""
+    tree = ast.parse(open(path).read(), path)
+    docs = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef, ast.AsyncFunctionDef)):
+            body = node.body
+            if body and isinstance(body[0], ast.Expr) and isinstance(body[0].value, ast.Constant):
+                docs.add(id(body[0].value))
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Constant) and isinstance(node.value, str) and id(node) not in docs
+                and _REFERENCE_DIR.search(node.value) and not _CITATION.search(node.value)):
+            yield node.value
+
+
+def test_reference_path_detector():
+    import tempfile
+
+    src = '"""doc: port of orb_slam_cuda_tpu/frontend/fast.py"""\nimport os\n' \
+          'P = os.path.join(R, "orb_slam_cuda_tpu", "frontend", "x.npy")\n' \
+          'Q = "../orb_slam_cuda_tpu/frontend/x.npy"\nC = "orb_slam_cuda_tpu/ops/pallas_fast.py:116"\n' \
+          'T = "orb_slam_cuda_tpu_torch/csrc/k.cu"\n'
+    with tempfile.NamedTemporaryFile("w", suffix=".py") as f:
+        f.write(src)
+        f.flush()
+        assert sorted(_reference_path_strings(f.name)) == ["../orb_slam_cuda_tpu/frontend/x.npy", "orb_slam_cuda_tpu"]
+
+
 def test_port_never_imports_jax():
     root = os.path.join(os.path.dirname(__file__), "..", "orb_slam_cuda_tpu_torch")
     offenders = []
     n_files = 0
+    chip = os.path.join(os.path.dirname(__file__), "..", "chip_smoke.py")
+    paths = [chip]
     for dirpath, _, files in os.walk(root):
-        for f in files:
-            if f.endswith(".py"):
-                n_files += 1
-                path = os.path.join(dirpath, f)
-                for mod in _imported_modules(path):
-                    top = mod.split(".")[0]
-                    if top in FORBIDDEN:
-                        offenders.append((path, mod))
+        paths += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
+    for path in paths:
+        n_files += 1
+        for mod in _imported_modules(path):
+            if mod.split(".")[0] in FORBIDDEN:
+                offenders.append((path, mod))
+        offenders += [(path, s) for s in _reference_path_strings(path)]
     assert n_files > 20
     assert not offenders, offenders
-    chip = os.path.join(os.path.dirname(__file__), "..", "chip_smoke.py")
-    assert not [m for m in _imported_modules(chip) if m.split(".")[0] in FORBIDDEN]

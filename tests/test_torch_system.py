@@ -52,7 +52,7 @@ def _run(slam, poses, images):
 def runs(orbit):
     poses, images = orbit
     jslam = JSystem(JConfig(camera=JCamera.create(**CAM), sensor=JSensor.MONOCULAR, **CFG))
-    tslam = System(SystemConfig(camera=Camera.create(**CAM), sensor=Sensor.MONOCULAR, **CFG))
+    tslam = System(SystemConfig(camera=Camera.create(**CAM), sensor=Sensor.MONOCULAR, **CFG), device="cpu")
     return (jslam, _run(jslam, poses, images)), (tslam, _run(tslam, poses, images))
 
 
@@ -92,7 +92,7 @@ def test_trajectory_export(runs, tmp_path):
 
 def test_synchronous_mapping(orbit):
     poses, images = orbit
-    slam = System(SystemConfig(camera=Camera.create(**CAM), async_mapping=False, **CFG))
+    slam = System(SystemConfig(camera=Camera.create(**CAM), async_mapping=False, **CFG), device="cpu")
     ate = _run(slam, poses[:25], images[:25])
     assert slam.tracked_ratio() > 0.85 and ate < 0.10
     assert not slam._bg
@@ -104,7 +104,7 @@ def test_loop_closing_on_matches_reference(orbit):
     poses, images = orbit
     cfg = dict(CFG, enable_loop_closing=True)
     jslam = JSystem(JConfig(camera=JCamera.create(**CAM), sensor=JSensor.MONOCULAR, **cfg))
-    tslam = System(SystemConfig(camera=Camera.create(**CAM), sensor=Sensor.MONOCULAR, **cfg))
+    tslam = System(SystemConfig(camera=Camera.create(**CAM), sensor=Sensor.MONOCULAR, **cfg), device="cpu")
     jate, tate = _run(jslam, poses, images), _run(tslam, poses, images)
     js, ts = jslam.get_status(), tslam.get_status()
     print(f"reference {js} ATE {jate:.4f}; port {ts} ATE {tate:.4f}")
@@ -122,7 +122,7 @@ def test_relocalizes_after_blackout():
                                      extent=12.0, tex_size=768)
     poses = tsyn.orbit_trajectory(44, radius=0.6)
     slam = System(SystemConfig(camera=Camera.create(**CAM), **dict(
-        CFG, max_frames_between_kf=4, kf_cull_redundancy=1.1, kf_ref_ratio=1.1)))
+        CFG, max_frames_between_kf=4, kf_cull_redundancy=1.1, kf_ref_ratio=1.1)), device="cpu")
     K = np.asarray(slam.cam.K)
     tracked_after = 0
     track = slam._track
@@ -153,7 +153,7 @@ def test_unported_configurations_refused(kw):
     cfg = dict(CFG, enable_loop_closing=False)
     cfg.update(kw)
     with pytest.raises(NotImplementedError):
-        System(SystemConfig(camera=Camera.create(**CAM), **cfg))
+        System(SystemConfig(camera=Camera.create(**CAM), **cfg), device="cpu")
 
 
 def _circuit_run(enable_loop: bool):
@@ -164,7 +164,7 @@ def _circuit_run(enable_loop: bool):
     poses = tsyn.circuit_trajectory(360, radius=5.0, laps=1.3)
     slam = System(SystemConfig(camera=Camera.create(**CAM), sensor=Sensor.MONOCULAR, n_features=800,
                                max_keyframes=128, max_points=16384, enable_loop_closing=enable_loop,
-                               max_frames_between_kf=30, min_frames_between_kf=0), seed=1)
+                               max_frames_between_kf=30, min_frames_between_kf=0), seed=1, device="cpu")
     return slam, _run_rendered(slam, scene, poses)
 
 
