@@ -4,7 +4,7 @@ the monocular parts of orb_slam_cuda_tpu/engine/local_mapping.py).
 The reference's `lax.scan`s over neighbours are Python loops here, and
 neighbour lists are read to the host once per keyframe. Scatters that the
 reference pads onto index 0 (or a sentinel with mode='drop') write into a
-trash row instead. `create_depth_points` (stereo/RGB-D) is not ported yet.
+trash row instead.
 """
 
 from __future__ import annotations
@@ -146,6 +146,37 @@ def insert_triangulated(state: MapState, tri: TriangulationResult, slots, kf_new
     state = mstate.bind_observations(state, kf_new, sel_c, slots, valid)
     nb_feat = tri.feat_nb[sel_c]
     state = mstate.bind_observations(state, kf_nb, torch.clamp(nb_feat, min=0), slots, valid & (nb_feat >= 0))
+    return state, torch.sum(valid)
+
+
+def create_depth_points(state: MapState, kf_slot, cam: Camera, th_depth: float, slots,
+                        max_new: int = 512):
+    """Spawn map points for the unbound features with a depth of a
+    stereo/RGB-D keyframe (CreateNewKeyFrame's depth branch): closest
+    first (a stable sort, so equal depths keep feature order), all those
+    closer than `th_depth` or among the 100 closest, at most `max_new`,
+    into the preallocated `slots`. Returns (state, number used)."""
+    dev = state.device
+    kf_slot = int(kf_slot)
+    depth = state.kf_depth[kf_slot]
+    cand = (depth > 0) & (state.kf_mp[kf_slot] < 0) & state.kf_feat_valid[kf_slot]
+    key = torch.where(cand, depth, torch.full_like(depth, float("inf")))
+    sel = torch.argsort(key, stable=True)[:max_new]
+    rank = torch.arange(max_new, device=dev)
+    valid = cand[sel] & ((depth[sel] < th_depth) | (rank < 100))
+
+    Twc = se3.inverse(state.kf_pose[kf_slot])
+    xyz = se3.transform(Twc, cam_mod.backproject(cam, state.kf_uv[kf_slot][sel], depth[sel]))
+    slots = torch.as_tensor(slots, device=dev).long()
+    kf_t = torch.full((max_new,), kf_slot, dtype=torch.int32, device=dev)
+    state = mstate.add_points(
+        state, slots, xyz, valid, state.kf_desc[kf_slot][sel],
+        torch.zeros((max_new, 3), dtype=torch.float32, device=dev),
+        torch.zeros((max_new,), dtype=torch.float32, device=dev),
+        torch.full((max_new,), 1e9, dtype=torch.float32, device=dev),
+        kf_t, kf_t,
+    )
+    state = mstate.bind_observations(state, kf_slot, sel, slots, valid)
     return state, torch.sum(valid)
 
 

@@ -70,19 +70,24 @@ def _staged_refine(state: MapState, frame: FrameData, kf: int, pose0, mp0, cam: 
 
 
 def relocalize(state: MapState, db, frame: FrameData, cam: Camera, n_words: int,
-               scale_factors, max_candidates: int = 5, stats: dict = None, sampler=None):
+               scale_factors, max_candidates: int = 5, stats: dict = None, sampler=None,
+               trace: list = None):
     """Try candidates best-score-first; return (pose, bindings, ok).
 
     `stats`, if given, counts the rung that produced the accepted pose
     ('bow', 'wide', 'narrow') and 'fail' per exhausted query. `sampler(site,
     seed, valid)` gives the EPnP minimal sets, seeded with the candidate's
-    slot (default: `initializer.default_sampler`)."""
+    slot (default: `initializer.default_sampler`). `trace`, if given,
+    receives one dict per candidate tried: its slot, BoW score and match
+    count, then as far as it got the EPnP verdict and the inliers after
+    each rung, and the rung that refused it under "refused_at"."""
     sampler = sampler or default_sampler
     wu, wt = keyframe_db.compute_bow_row(frame.word, frame.idf, frame.valid)
     q_dense = keyframe_db.dense_bow(wu, wt, n_words)
     cand_mask, scores = keyframe_db.detect_candidates(db, q_dense, torch.zeros_like(db.valid), state.covis)
     cand_mask = cand_mask.cpu().numpy()
-    order = np.argsort(-scores.cpu().numpy())
+    scores = scores.cpu().numpy()
+    order = np.argsort(-scores)
     cands = [int(k) for k in order if cand_mask[k]][:max_candidates]
 
     sig2 = torch.as_tensor(scale_factors, dtype=torch.float32, device=state.device) ** 2
@@ -97,19 +102,31 @@ def relocalize(state: MapState, db, frame: FrameData, cam: Camera, n_words: int,
             ratio=0.75, check_rotation=True, f1_has_point=kf_has,
         )
         ok_pair = m.idx >= 0
-        if int(torch.sum(ok_pair)) < MIN_BOW_MATCHES:
+        n_pairs = int(torch.sum(ok_pair))
+        row = dict(kf=kf, score=float(scores[kf]), bow_matches=n_pairs)
+        if trace is not None:
+            trace.append(row)
+        if n_pairs < MIN_BOW_MATCHES:
+            row["refused_at"] = "bow_matches"
             continue
         j = torch.clamp(m.idx, min=0)
         err_th2 = 5.991 * sig2[torch.clamp(frame.oct[j].long(), 0, max_oct)]
         valid = ok_pair & kf_has
         res = pnp.solve_pnp_ransac(state.mp_xyz[safe_mp], frame.uv[j], valid, err_th2, cam,
                                    sample_sets=sampler("pnp", kf, valid))
+        if trace is not None:
+            row["pnp_inliers"] = int(torch.sum(res.inliers & ok_pair))
         if not bool(res.ok):
+            row["refused_at"] = "pnp"
             continue
         mp = tracking._bind(frame.capacity, m.idx, kf_mp, res.inliers & ok_pair)
         pose2, mp2, n_good, n_bow, n_wide = _staged_refine(
             state, frame, kf, res.pose, mp, cam, scale_factors)
-        if int(n_good) >= MIN_INLIERS_ACCEPT:
+        if trace is not None:
+            row.update(n_bow=int(n_bow), n_wide=int(n_wide), n_good=int(n_good))
+        if int(n_good) < MIN_INLIERS_ACCEPT:
+            row["refused_at"] = "ladder"
+        else:
             if stats is not None:
                 stage = ("bow" if int(n_bow) >= MIN_INLIERS_ACCEPT
                          else "wide" if int(n_wide) >= MIN_INLIERS_ACCEPT else "narrow")

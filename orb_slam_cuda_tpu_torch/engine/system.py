@@ -1,16 +1,17 @@
-"""System facade, monocular (torch port of the monocular path of
-orb_slam_cuda_tpu/engine/system.py).
+"""System facade (torch port of orb_slam_cuda_tpu/engine/system.py).
 
 `System(cfg)` owns the extractor, vocabulary, map state, tracking state
 machine, local mapper and loop closer; every tensor it creates lives on
 `device`, the card unless the caller passes `device="cpu"` (with no card
-and no argument the constructor raises). Ported: `track_monocular` with
-`pipeline_lag=0`, two-view initialization, the fused tracking step,
-relocalization of lost frames, keyframe creation, local mapping and loop
-closing with its chunked global BA (synchronous, or through the
-background queue's units when `async_mapping`). Not ported yet, and
-refused by the constructor: stereo/RGB-D, the pipelined lag, device
-meshes and cluster refinement.
+and no argument the constructor raises). Ported: `track_monocular`,
+`track_stereo` and `track_rgbd` with `pipeline_lag=0`, two-view and
+depth initialization, the fused tracking step, relocalization of lost
+frames, keyframe creation (with depth points for stereo/RGB-D), local
+mapping and loop closing with its chunked global BA (synchronous, or
+through the background queue's units when `async_mapping`),
+localization-only mode with its frame-to-frame visual odometry, map
+save/load and trajectory export. Not ported yet, and refused by the
+constructor: the pipelined lag, device meshes and cluster refinement.
 """
 
 from __future__ import annotations
@@ -25,9 +26,10 @@ import numpy as np
 import torch
 
 from ..frontend.extractor import ExtractorConfig, ORBExtractor
-from ..geometry import se3
+from ..geometry import camera as cam_mod
 from ..geometry.camera import Camera
 from ..matching import search
+from ..ops import hamming
 from ..slam_map import MapConfig, keyframe_db
 from ..slam_map import ops as map_ops
 from ..slam_map import state as mstate
@@ -36,7 +38,7 @@ from ..solvers import initializer as init_solver
 from ..utils.device import resolve as resolve_device
 from ..utils.timing import StageTimer
 from ..vocab import build_vocabulary
-from . import local_mapping, relocalization, tracking
+from . import local_mapping, relocalization, stereo, tracking
 from .frame import FrameData, build_frame
 from .loop_closing import LoopCloser
 
@@ -70,8 +72,15 @@ class SystemConfig:
     vocab_words: int = 512
     init_min_matches: int = 60
     init_min_triangulated: int = 40
+    # Stereo/RGB-D: close-point threshold = th_depth_factor * baseline, and
+    # the least feature count for the one-frame bootstrap.
     th_depth_factor: float = 35.0
+    stereo_init_min_features: int = 500
+    depth_map_factor: float = 1.0
     enable_loop_closing: bool = True
+    # Parsed from `SLAM.loop_min_kfs` so that a settings file gives the same
+    # SystemConfig in both packages; neither package's code reads it.
+    loop_min_kfs: int = 10
     kf_cull_redundancy: float = 0.9
     kf_ref_ratio: Optional[float] = None
     pipeline_lag: int = 0
@@ -89,11 +98,11 @@ class TrackStats:
     n_reloc: int = 0
     n_kf_grows: int = 0
     n_pt_grows: int = 0
+    n_vo_frames: int = 0  # localization-mode visual-odometry frames
 
 
 def _refuse(config: SystemConfig):
     unported = {
-        "sensor != MONOCULAR": config.sensor != Sensor.MONOCULAR,
         "pipeline_lag > 0": config.pipeline_lag > 0,
         "mesh": config.mesh is not None,
         "cluster_refine_interval > 0": config.cluster_refine_interval > 0,
@@ -114,7 +123,7 @@ def synthetic_vocabulary(vocab_words: int, seed: int = 0):
 
 
 class System:
-    """End-to-end monocular SLAM engine on one torch device."""
+    """End-to-end SLAM engine (monocular, stereo, RGB-D) on one torch device."""
 
     def __init__(self, config: SystemConfig, vocab=None, seed: int = 0, device="cuda"):
         _refuse(config)
@@ -142,9 +151,13 @@ class System:
         self._bg = deque()  # deferred mapping units
         self.state = mstate.empty(self.map_cfg, self.device)
         self.db = keyframe_db.empty(config.max_keyframes, config.n_features, self.device)
+        mono = config.sensor == Sensor.MONOCULAR
         self.mapper = local_mapping.LocalMapper(
             self.map_cfg, cam, kf_cull_redundancy=config.kf_cull_redundancy,
-            n_triangulate_neighbors=20, n_fuse_neighbors=40, device=self.device,
+            # Neighbour budgets: 20 monocular / 10 otherwise for
+            # triangulation, twice that for fusion.
+            n_triangulate_neighbors=20 if mono else 10,
+            n_fuse_neighbors=40 if mono else 20, device=self.device,
         )
         self.scale_factors = tuple(self.map_cfg.scale_factors)
 
@@ -153,6 +166,8 @@ class System:
         self.last_pose: Optional[np.ndarray] = None
         self.n_inliers_local = 0
         self.ref_tracked = 0
+        self.close_tracked = 0
+        self.close_untracked = 0
         self.last_frame: Optional[FrameData] = None
         self.init_frame: Optional[FrameData] = None
         self.ref_kf: int = 0
@@ -166,13 +181,23 @@ class System:
         self.kf_gen = np.zeros(config.max_keyframes, np.int64)
         self.cull_repair = {}
         self.kf_timestamps = {}
+        self.localization_only = False
         self.stats = TrackStats()
         self.timer = StageTimer(enabled=True)
         self.reloc_stage_stats = {}
+        self.reloc_trace = None  # a list here receives every relocalization candidate's outcome
         self.loop_closer = None
         if config.enable_loop_closing:
-            self.loop_closer = LoopCloser(self.map_cfg, cam, self.vocab)
+            self.loop_closer = LoopCloser(self.map_cfg, cam, self.vocab, fix_scale=not mono)
             self.loop_closer.timer = self.timer
+        # Close-point threshold in meters (ThDepth = factor * baseline).
+        self.th_depth = config.th_depth_factor * (cam.bf / cam.fx) if cam.bf > 0 else 0.0
+
+    @property
+    def _vo_th_depth(self) -> float:
+        """Close-depth gate of the motion model's temporal points: they
+        exist only in localization-only mode, so full SLAM passes 0."""
+        return self.th_depth if self.localization_only else 0.0
 
     def _sync(self):
         return self.device if self.device.type == "cuda" else None
@@ -182,6 +207,7 @@ class System:
         """Track one grayscale frame (numpy array or tensor, on any
         device). Returns the 4x4 Tcw (np.ndarray) or None while
         uninitialized/lost."""
+        assert self.cfg.sensor == Sensor.MONOCULAR
         self.timer.set_frame(self.frame_id)
         # As the reference's synchronous path does, the previous frames'
         # deferred mapping and loop units finish before this frame tracks.
@@ -194,6 +220,111 @@ class System:
             pose = self._track(frame, timestamp)
         self.frame_id += 1
         return pose
+
+    def track_stereo(self, left, right, timestamp: float):
+        """Track one rectified stereo pair: extract both views, associate
+        stereo depth (Hamming match along the row band, SAD refinement on
+        the two pyramids the extractor has just built), then track. The
+        first frame with enough features and depths initializes the map."""
+        assert self.cfg.sensor == Sensor.STEREO
+        self.timer.set_frame(self.frame_id)
+        # As in the reference, only the monocular entry drains the
+        # background queue first: here a keyframe's deferred units are
+        # pumped one a frame, and drained when the next keyframe is due.
+        with self.timer.stage("times.csv", "orb_extract_stereo", sync=self._sync()):
+            lf, l_pyr = self.extractor.extract_with_pyramid(left)
+            rf, r_pyr = self.extractor.extract_with_pyramid(right)
+        with self.timer.stage("times.csv", "build_frame", sync=self._sync()):
+            frame = build_frame(lf, self.cam, self.vocab)
+        with self.timer.stage("times.csv", "stereo_match", sync=self._sync()):
+            ur, depth = stereo.match_stereo(
+                frame.uv, frame.oct, frame.bip, frame.valid,
+                rf.uv, rf.octave, hamming.bipolar(rf.desc), rf.valid,
+                self.cam, self.scale_factors, left_pyramid=l_pyr, right_pyramid=r_pyr,
+            )
+            frame = frame._replace(right=ur, depth=depth)
+        return self._track_with_depth(frame, timestamp)
+
+    def track_rgbd(self, image, depth_map, timestamp: float):
+        """Track one grayscale frame with its registered depth map (any
+        numeric type; meters after scaling by `cfg.depth_map_factor`)."""
+        assert self.cfg.sensor == Sensor.RGBD
+        self.timer.set_frame(self.frame_id)
+        with self.timer.stage("times.csv", "orb_extract_rgbd", sync=self._sync()):
+            feats = self.extractor(image)
+        with self.timer.stage("times.csv", "build_frame", sync=self._sync()):
+            frame = build_frame(feats, self.cam, self.vocab)
+        with self.timer.stage("times.csv", "depth_lookup", sync=self._sync()):
+            if isinstance(depth_map, np.ndarray) and depth_map.dtype.kind == "u":
+                depth_map = depth_map.astype(np.int64 if depth_map.dtype.itemsize > 2 else np.int32)
+            depth = stereo.depth_from_rgbd(
+                frame.uv_raw, frame.valid, torch.as_tensor(depth_map).to(self.device),
+                self.cam, self.cfg.depth_map_factor,
+            )
+            frame = frame._replace(right=stereo.virtual_right(frame.uv, depth, self.cam), depth=depth)
+        return self._track_with_depth(frame, timestamp)
+
+    def _track_with_depth(self, frame: FrameData, timestamp: float):
+        if self.tracking_state in (TrackingState.NO_IMAGES_YET, TrackingState.NOT_INITIALIZED):
+            with self.timer.stage("timesTracking.csv", "track", sync=self._sync()):
+                pose = self._depth_initialize(frame)
+                self._append_traj(timestamp, pose, pose is not None)
+        else:
+            with self.timer.stage("timesTracking.csv", "track", sync=self._sync()):
+                pose = self._track(frame, timestamp)
+        self.frame_id += 1
+        return pose
+
+    def _depth_initialize(self, frame: FrameData):
+        """StereoInitialization: one keyframe at the origin; every feature
+        with a depth becomes a map point at once."""
+        dev = self.device
+        if int(torch.sum(frame.valid)) < self.cfg.stereo_init_min_features:
+            return None
+        sel_t = torch.nonzero((frame.depth > 0) & frame.valid).flatten()
+        n_new = int(sel_t.shape[0])
+        if n_new < 100:
+            return None
+        T0 = np.eye(4, dtype=np.float32)
+        slot = 0
+        pt_slots = np.arange(n_new, dtype=np.int32)
+        pt_slots_t = torch.as_tensor(pt_slots, device=dev)
+        mp_row = torch.full((frame.capacity,), -1, dtype=torch.int32, device=dev)
+        mp_row[sel_t] = pt_slots_t
+        st = mstate.insert_keyframe(
+            self.state, slot, torch.as_tensor(T0, device=dev), self.frame_id,
+            frame.uv, frame.right, frame.depth, frame.oct, frame.ang,
+            frame.desc, frame.valid, frame.word, frame.node, mp_row,
+        )
+        xyz = cam_mod.backproject(self.cam, frame.uv[sel_t], frame.depth[sel_t])
+        ref = torch.full((n_new,), slot, dtype=torch.int32, device=dev)
+        st = mstate.add_points(
+            st, pt_slots_t, xyz, torch.ones((n_new,), dtype=torch.bool, device=dev),
+            frame.desc[sel_t],
+            torch.zeros((n_new, 3), dtype=torch.float32, device=dev),
+            torch.zeros((n_new,), dtype=torch.float32, device=dev),
+            torch.full((n_new,), 1e9, dtype=torch.float32, device=dev), ref, ref,
+        )
+        st = map_ops.update_point_stats(st, self.map_cfg)
+        st = map_ops.refresh_covis_rows(st, torch.tensor([slot], device=dev))
+        wu, wt = keyframe_db.compute_bow_row(frame.word, frame.idf, frame.valid)
+        self.db = keyframe_db.insert(self.db, slot, wu, wt)
+        self.state = st
+        self.kf_order = [slot]
+        self.kf_gen[slot] += 1
+        self._next_kf_slot = 1
+        self.mapper._next_pt_slot = n_new
+        self.mapper.mp_valid_host[:] = False
+        self.mapper.note_points_added(pt_slots)
+        self.recent_pts = []
+        self.ref_kf = slot
+        self.last_pose = T0
+        self.velocity = None
+        self.last_frame = frame._replace(mp=mp_row)
+        self.tracking_state = TrackingState.OK
+        self.frames_since_kf = 0
+        self.stats.n_keyframes = 1
+        return T0
 
     # ------------------------------------------------------------------
     def _track(self, frame: FrameData, timestamp: float):
@@ -215,7 +346,9 @@ class System:
                 self.state, frame, pose_pred.astype(np.float32), self.last_pose.astype(np.float32),
                 lf.uv, lf.oct, lf.ang, lf.bip, lf.mp, lf.depth,
                 self.ref_kf, min_obs, self.cam, self.scale_factors,
-                tracking.MOTION_MODEL_RADIUS,
+                tracking.MOTION_MODEL_RADIUS_STEREO if self.cfg.sensor == Sensor.STEREO
+                else tracking.MOTION_MODEL_RADIUS,
+                self.th_depth, self._vo_th_depth,
             )
             vec = res.host_vec.cpu().numpy()
             scal = vec[:9].astype(np.int64)
@@ -224,6 +357,8 @@ class System:
             self.ref_kf = int(scal[2])
             self.n_inliers_local = int(scal[1])
             self.ref_tracked = int(scal[3])
+            self.close_tracked = int(scal[7])
+            self.close_untracked = int(scal[8])
             if ok:
                 pose = vec[9:25].reshape(4, 4).copy()
                 ref_pose = vec[25:41].reshape(4, 4).copy()
@@ -237,6 +372,18 @@ class System:
                 pose2, ok = self._track_local_map(pose)
                 if ok:
                     pose = pose2
+            elif (
+                self.localization_only
+                and self.cfg.sensor != Sensor.MONOCULAR
+                and self.last_frame is not None
+                and self.last_pose is not None
+            ):
+                # Relocalization failed but the last frame carries depth:
+                # track frame to frame on its temporal 3D points, so that
+                # localization-only mode survives mapless regions (mbVO).
+                pose, ok = self._track_visual_odometry(frame)
+                if ok:
+                    self.stats.n_vo_frames += 1
 
         if ok:
             self.tracking_state = TrackingState.OK
@@ -245,7 +392,7 @@ class System:
                 self.velocity = pose @ np.linalg.inv(self.last_pose)
             self.last_pose = pose
             self.frames_since_kf += 1
-            if self._need_new_keyframe(frame):
+            if not self.localization_only and self._need_new_keyframe(frame):
                 self._create_keyframe(frame)
                 self.kf_timestamps[self.ref_kf] = timestamp
         else:
@@ -253,7 +400,7 @@ class System:
             self.stats.n_lost += 1
             self.velocity = None
             # Lost right after initialization -> full reset.
-            if 0 < len(self.kf_order) <= 5:
+            if 0 < len(self.kf_order) <= 5 and not self.localization_only:
                 self.reset()
 
         self._append_traj(
@@ -382,13 +529,28 @@ class System:
         self.stats.n_keyframes = 2
         return pose2
 
+    def _track_visual_odometry(self, frame: FrameData):
+        """Frame-to-frame VO against the last frame's depth points."""
+        lf = self.last_frame
+        vel = self.velocity if self.velocity is not None else np.eye(4, dtype=np.float32)
+        pose_pred = (vel @ self.last_pose).astype(np.float32)
+        pose, n_m, n_i = tracking.track_vo_last_frame(
+            frame, lf.uv, lf.oct, lf.ang, lf.bip, lf.depth, lf.valid,
+            self.last_pose.astype(np.float32), pose_pred, self.cam, self.scale_factors,
+            tracking.MOTION_MODEL_RADIUS_STEREO,
+        )
+        if int(n_m) >= tracking.MIN_MATCHES_MOTION and int(n_i) >= tracking.MIN_INLIERS_TRACK:
+            self.last_frame = frame._replace(mp=torch.full_like(frame.mp, -1))
+            return pose.cpu().numpy(), True
+        return None, False
+
     def _relocalize(self, frame: FrameData):
         """BoW candidates from the database, BoW matching, EPnP RANSAC and
         the staged pose ladder; on success the frame keeps its bindings."""
         with self.timer.stage("timesTracking.csv", "relocalize", sync=self._sync()):
             pose, mp, ok = relocalization.relocalize(
                 self.state, self.db, frame, self.cam, self.vocab.n_words,
-                self.scale_factors, stats=self.reloc_stage_stats,
+                self.scale_factors, stats=self.reloc_stage_stats, trace=self.reloc_trace,
             )
         if not ok:
             return None, False
@@ -478,23 +640,32 @@ class System:
 
     # ------------------------------------------------------------------
     def _need_new_keyframe(self, frame: FrameData) -> bool:
-        """NeedNewKeyFrame, monocular: c1a (max interval) or c1b (min
-        interval and mapper idle), gated by c2 (weakening vs the reference
-        keyframe, with the survival-floor clamp, and > 15 inliers)."""
+        """NeedNewKeyFrame: c1a (max interval), c1b (min interval and
+        mapper idle) or c1c (stereo/RGB-D: tracking weak, or close points
+        running out), gated by c2 (weakening vs the reference keyframe,
+        with the survival-floor clamp, or close points running out; and
+        > 15 inliers)."""
         if len(self.kf_order) == 0:
             return False
         inliers = self.n_inliers_local
+        mono = self.cfg.sensor == Sensor.MONOCULAR
         idle = not any(u[0] == "map_finish" for u in self._bg)
-        th_ref = self.cfg.kf_ref_ratio if self.cfg.kf_ref_ratio is not None else 0.9
+        # bNeedToInsertClose: few close points tracked, many untracked.
+        need_close = (not mono) and self.close_tracked < 100 and self.close_untracked > 70
+        # thRefRatio: 0.9 monocular, else 0.75, 0.4 for a one-keyframe map.
+        th_ref = self.cfg.kf_ref_ratio
+        if th_ref is None:
+            th_ref = 0.9 if mono else (0.4 if len(self.kf_order) < 2 else 0.75)
         c1a = self.frames_since_kf >= self.cfg.max_frames_between_kf
         c1b = self.frames_since_kf >= self.cfg.min_frames_between_kf and idle
+        c1c = (not mono) and (inliers < self.ref_tracked * 0.25 or need_close)
         weak = (
             th_ref > 1.0
             or inliers < self.ref_tracked * th_ref
             or inliers < 2 * tracking.MIN_INLIERS_LOCAL
         )
-        c2 = weak and inliers > 15
-        if not ((c1a or c1b) and c2):
+        c2 = (weak or need_close) and inliers > 15
+        if not ((c1a or c1b or c1c) and c2):
             return False
         if idle:
             return True
@@ -566,6 +737,8 @@ class System:
             self.frame_id, frame.uv, frame.right, frame.depth, frame.oct, frame.ang,
             frame.desc, frame.valid, frame.word, frame.node, mp_clean,
         )
+        if self.cfg.sensor != Sensor.MONOCULAR:
+            self._create_depth_points(slot)
         wu, wt = keyframe_db.compute_bow_row(frame.word, frame.idf, frame.valid)
         self.db = keyframe_db.insert(self.db, slot, wu, wt)
         self.kf_order.append(slot)
@@ -598,6 +771,20 @@ class System:
         if lc is not None and len(self.kf_order) > 3:
             with self.timer.stage("timesMapping.csv", "loop_closing", sync=self._sync()):
                 self.state, self.db = lc.process(self.state, self.db, slot, self.kf_order)
+
+    def _create_depth_points(self, slot: int):
+        """A stereo/RGB-D keyframe spawns points for its unbound close
+        features; they enter the probation list."""
+        MAX_NEW = 512
+        slots = self.mapper.peek_point_slots(self.state, MAX_NEW)
+        self.state, n_used = local_mapping.create_depth_points(
+            self.state, slot, self.cam, self.th_depth, slots, max_new=MAX_NEW,
+        )
+        n_used = int(n_used)
+        self.mapper.advance_point_slots(slots, n_used)
+        self.mapper.note_points_added(slots[:n_used])
+        born = len(self.kf_order) + 1
+        self.recent_pts.extend((int(p), born) for p in slots[:n_used])
 
     # ------------------------------------------------------------------
     def _append_traj(self, ts, pose, ok, ref_slot=-1, ref_pose=None):
@@ -656,7 +843,14 @@ class System:
             "keyframes": self.stats.n_keyframes,
             "relocalizations": self.stats.n_reloc,
             "loops_closed": self.loop_closer.n_loops_closed if self.loop_closer else 0,
+            "localization_only": self.localization_only,
         }
+
+    def set_localization_mode(self, enabled: bool):
+        """Localization-only switching: tracking and relocalization go on,
+        mapping and loop closing stop."""
+        self._drain_background()
+        self.localization_only = enabled
 
     def reset(self):
         """Full reset: map, database, state machine."""
@@ -683,14 +877,35 @@ class System:
             lc.gba_idx += 1  # supersede any in-flight global BA
             lc.gba_requested = False
 
+    # The io modules are imported where they are used: io/config.py
+    # imports this module.
     def save_trajectory_tum(self, path: str):
-        """TUM format: `t tx ty tz qx qy qz qw` of Twc per tracked frame."""
-        with open(path, "w") as f:
-            for t, Tcw, ok in self.get_trajectory():
-                if not ok or Tcw is None:
-                    continue
-                Twc = np.linalg.inv(np.asarray(Tcw, np.float64))
-                q = se3.rot_to_quat(torch.as_tensor(Twc[:3, :3])).numpy()
-                tx, ty, tz = Twc[:3, 3]
-                f.write(f"{t:.6f} {tx:.7f} {ty:.7f} {tz:.7f} "
-                        f"{q[1]:.7f} {q[2]:.7f} {q[3]:.7f} {q[0]:.7f}\n")
+        from ..io import trajectory as traj_io
+
+        traj_io.save_trajectory_tum(self.get_trajectory(), path)
+
+    def save_trajectory_kitti(self, path: str):
+        from ..io import trajectory as traj_io
+
+        traj_io.save_trajectory_kitti(self.get_trajectory(), path)
+
+    def save_keyframe_trajectory_tum(self, path: str):
+        from ..io import trajectory as traj_io
+
+        self._drain_background()
+        traj_io.save_keyframe_trajectory_tum(self.state, self.kf_order, self.kf_timestamps, path)
+
+    def save_map(self, path: str):
+        """Write the map, the BoW database and the mapping bookkeeping to
+        one .npz (the reference's checkpoint format, key for key)."""
+        from ..io import checkpoint
+
+        self._drain_background()
+        checkpoint.save_system(self, path)
+
+    def load_map(self, path: str, localization_only: bool = True):
+        """Load a checkpoint written by this package or by the reference;
+        the system starts LOST and relocalizes against the loaded map."""
+        from ..io import checkpoint
+
+        checkpoint.load_into_system(self, path, localization_only)

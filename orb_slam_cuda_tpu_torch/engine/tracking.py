@@ -1,9 +1,8 @@
-"""Tracking: motion model, reference-keyframe fallback, local-map tracking
-and the fused per-frame step (torch port of the monocular parts of
-orb_slam_cuda_tpu/engine/tracking.py). The reference's `lax.cond`s are
-host `if`s on 0-d tensors here: each costs one sync. The pipelined
-(`fused_pipeline_step`, `TrackCarry`) and localization-mode VO steps are
-not ported yet."""
+"""Tracking: motion model, reference-keyframe fallback, local-map tracking,
+the fused per-frame step and the localization-mode visual odometry (torch
+port of orb_slam_cuda_tpu/engine/tracking.py). The reference's `lax.cond`s
+are host `if`s on 0-d tensors here: each costs one sync. The pipelined step
+(`fused_pipeline_step`, `TrackCarry`) is not ported yet."""
 
 from __future__ import annotations
 
@@ -22,6 +21,7 @@ from ..solvers import pose_opt
 from .frame import FrameData
 
 MOTION_MODEL_RADIUS = 15.0
+MOTION_MODEL_RADIUS_STEREO = 7.0
 MIN_MATCHES_MOTION = 20
 MIN_INLIERS_TRACK = 10
 MIN_MATCHES_REF_KF = 15
@@ -128,6 +128,46 @@ def _optimize_and_prune(state, frame, pose0, mp, cam, scale_factors,
     mp_out = torch.where(res.inliers, mp, torch.full_like(mp, -1))
     n_inl = torch.sum(res.inliers & (mp >= 0))
     return res.pose, mp_out, n_inl
+
+
+def track_vo_last_frame(frame: FrameData, last_uv, last_oct, last_ang, last_bip,
+                        last_depth, last_valid, pose_last, pose_pred, cam: Camera,
+                        scale_factors, radius):
+    """Localization-mode visual odometry (mbVO): track frame to frame
+    against the points backprojected from the LAST frame's own depths, no
+    map involved. Returns (pose, n_matches, n_inliers). Monocular frames
+    carry no depth, so the path is inert for them.
+
+    Unmatched rows go to a trash row; the reference scatters them onto
+    feature 0 with that feature's own value, which leaves it unchanged
+    except where a real match to feature 0 is written in the same
+    scatter."""
+    dev = frame.uv.device
+    pose_last = torch.as_tensor(pose_last, dtype=torch.float32, device=dev)
+    pose_pred = torch.as_tensor(pose_pred, dtype=torch.float32, device=dev)
+    Xc_last = cam_mod.backproject(cam, last_uv, torch.clamp(last_depth, min=1e-6))
+    Xw = se3.transform(se3.inverse(pose_last), Xc_last)
+    Xc = se3.transform(pose_pred, Xw)
+    proj = cam_mod.project(cam, Xc)
+    q_valid = last_valid & (last_depth > 0) & (Xc[:, 2] > 0)
+
+    m = search.by_projection(
+        proj, last_bip, q_valid, last_oct,
+        frame.uv, frame.oct, frame.ang, frame.bip, frame.valid,
+        scale_factors, radius=radius,
+        q_ang=last_ang, max_dist=100.0, ratio=0.9, check_rotation=True,
+    )
+    ok = m.idx >= 0
+    n = frame.capacity
+    tidx = torch.where(ok, m.idx.long(), torch.full_like(m.idx, n, dtype=torch.int64))
+    Xw_f = torch.zeros((n + 1, 3), dtype=torch.float32, device=dev)
+    Xw_f[tidx] = Xw
+    bound = torch.zeros((n + 1,), dtype=torch.bool, device=dev)
+    bound[tidx] = True
+    inv_sigma2 = inv_level_sigma2(scale_factors, frame.oct)
+    res = pose_opt.optimize_pose(pose_pred, Xw_f[:n], frame.uv, frame.right, inv_sigma2,
+                                 bound[:n] & frame.valid, cam)
+    return res.pose, torch.sum(ok), res.n_inliers
 
 
 def assemble_local_map(state: MapState, frame_mp, max_local_kfs: int = 20):

@@ -234,9 +234,18 @@ class ORBExtractor:
         img = torch.as_tensor(image).to(self.device)
         return self._extract_impl(img)
 
-    def _extract_impl(self, image) -> Features:
+    def extract_with_pyramid(self, image):
+        """(Features, the image pyramid they were extracted from): the
+        levels `image_ops.build_pyramid` gives for this image, which the
+        stereo SAD refinement reads again."""
+        img = torch.as_tensor(image).to(self.device)
+        levels = image_ops.build_pyramid(img, self.config.n_levels, self.config.scale_factor)
+        return self._extract_impl(img, levels), levels
+
+    def _extract_impl(self, image, levels=None) -> Features:
         cfg = self.config
-        levels = image_ops.build_pyramid(image, cfg.n_levels, cfg.scale_factor)
+        if levels is None:
+            levels = image_ops.build_pyramid(image, cfg.n_levels, cfg.scale_factor)
         quotas = cfg.features_per_level()
         scales = cfg.scale_factors()
         uts, ress, octs, vals, praws, pblurs = [], [], [], [], [], []

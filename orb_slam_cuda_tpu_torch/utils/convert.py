@@ -41,6 +41,8 @@ def camera(cam) -> Camera:
 
 
 def vocabulary(voc, device="cpu") -> Vocabulary:
+    """A trained or text-loaded reference vocabulary (levels of any, ragged
+    sizes; early leaves in `node_word`)."""
     i64 = torch.int64
     return Vocabulary(
         children_packed=[tensor(a, device) for a in voc.children_packed],
@@ -65,6 +67,7 @@ def bow_db(db, device="cpu") -> BowDB:
 
 
 def frame_data(frame, device="cpu") -> FrameData:
+    """Every field, `right` and `depth` of a stereo/RGB-D frame included."""
     return _named(FrameData, frame, device)
 
 

@@ -127,11 +127,13 @@ class PlanarScene:
                       ev=[0, 1.0, 0], tex=tex2, scale=2 * extent / tex_size)
         return PlanarScene([p_far, p_near])
 
-    def render(self, K, Tcw, width: int, height: int, device="cpu"):
+    def render(self, K, Tcw, width: int, height: int, device="cpu",
+               return_depth: bool = False):
         """Grayscale (height,width) torch.uint8 on `device` from world->cam
         pose Tcw, computed in float64 there. Each plane's texture->image
         map is H = K [R eu, R ev, R origin + t] diag(scale, scale, 1);
-        ray-plane depths z-order the planes."""
+        ray-plane depths z-order the planes. With `return_depth`, also the
+        z-depth in meters as float32 (0 where no surface)."""
         dev = torch.device(device)
         f64 = torch.float64
         K = np.asarray(K, np.float64)
@@ -163,7 +165,22 @@ class PlanarScene:
             visible = covered & (lam > 0.05) & (lam < depth)
             out = torch.where(visible, warped, out)
             depth = torch.where(visible, lam, depth)
+        if return_depth:
+            # lam scales rays (x, y, 1): it is the z-depth in meters.
+            return out, torch.where(torch.isfinite(depth), depth, torch.zeros_like(depth)).to(torch.float32)
         return out
+
+    def render_with_depth(self, K, Tcw, width: int, height: int, device="cpu"):
+        """(gray uint8, z-depth float32 meters, 0 = no surface)."""
+        return self.render(K, Tcw, width, height, device=device, return_depth=True)
+
+    def render_stereo(self, K, Tcw, baseline: float, width: int, height: int, device="cpu"):
+        """Left/right pair; the right camera sits +baseline along cam x."""
+        T_rl = np.eye(4)
+        T_rl[0, 3] = -baseline
+        left = self.render(K, Tcw, width, height, device=device)
+        right = self.render(K, T_rl @ np.asarray(Tcw, np.float64), width, height, device=device)
+        return left, right
 
 
 def orbit_trajectory(n_frames: int, radius: float = 0.4, depth_amp: float = 0.15,

@@ -1,1 +1,1 @@
-from .vocabulary import Vocabulary, build_vocabulary  # noqa: F401
+from .vocabulary import Vocabulary, build_vocabulary, load_orbvoc_text  # noqa: F401

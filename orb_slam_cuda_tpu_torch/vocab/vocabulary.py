@@ -1,9 +1,13 @@
 """BoW vocabulary tree as per-level tensors (torch port of
-orb_slam_cuda_tpu/vocab/vocabulary.py): the batched packed-XOR descent
-and the numpy trainer. The stock ORBvoc.txt loader is not ported yet.
+orb_slam_cuda_tpu/vocab/vocabulary.py): the batched packed-XOR descent,
+the numpy trainer and the loader of the DBoW2 text format (ORBvoc.txt),
+whose parser is either the native scanner that `native_loader` compiles
+at first use or numpy's; the caller chooses, and nothing switches silently.
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
@@ -188,4 +192,115 @@ def build_vocabulary(descriptors, k: int = 8, depth: int = 3,
         k=k,
         depth=depth,
         levelsup_depth=levelsup_depth,
+    )
+
+
+PARSERS = ("native", "numpy")
+
+
+def parse_orbvoc_numpy(path: str):
+    """-> (k, depth, parents (n,), is_leaf (n,), desc_bytes (n,32),
+    weights (n,)) of a DBoW2 text vocabulary, parsed with np.loadtxt."""
+    with open(path) as f:
+        header = f.readline().split()
+        k, depth = int(header[0]), int(header[1])
+        body = np.loadtxt(f, dtype=np.float64, ndmin=2)
+    if body.size == 0:
+        raise ValueError(f"empty vocabulary file: {path}")
+    return (k, depth, body[:, 0].astype(np.int64), body[:, 1] != 0,
+            body[:, 2:34].astype(np.uint8), body[:, 34])
+
+
+def load_orbvoc_text(path: str, levelsup: int = 4, parser: str = "native",
+                     timings: dict = None) -> Vocabulary:
+    """Load a DBoW2 text vocabulary (header `k L s1 s2`, then one line per
+    node in BFS order: `parent is_leaf d0..d31 weight`). Returns CPU
+    tensors; `.to(device)` moves them.
+
+    `levelsup` counts levels up FROM THE LEAVES, as DBoW2 does: the
+    direct-index node lives at depth `L - levelsup` from the root (at least
+    1). `parser` is "native" (the C++ scanner, compiled at first use; a
+    failed build or load raises) or "numpy"; both give equal arrays.
+    `timings`, if given, receives the seconds of the two steps under
+    "parse" and "assemble" and the file's node count under "nodes"."""
+    t0 = time.perf_counter()
+    if parser == "native":
+        from . import native_loader
+
+        k, depth, parents, is_leaf, desc_bytes, weights = native_loader.parse_orbvoc_text(path)
+    elif parser == "numpy":
+        k, depth, parents, is_leaf, desc_bytes, weights = parse_orbvoc_numpy(path)
+    else:
+        raise ValueError(f"parser must be one of {PARSERS}, not {parser!r}")
+    t1 = time.perf_counter()
+    voc = _assemble_from_flat(
+        np.asarray(parents, np.int64), np.asarray(is_leaf).astype(bool),
+        np.asarray(desc_bytes, np.uint8), np.asarray(weights, np.float64),
+        int(k), int(depth), max(1, int(depth) - levelsup),
+    )
+    if timings is not None:
+        timings.update(parse=t1 - t0, assemble=time.perf_counter() - t1, nodes=len(parents))
+    return voc
+
+
+def _assemble_from_flat(parents, is_leaf, desc_bytes, weights, k, depth, levelsup):
+    """Per-level arrays from a flat node list that excludes the root: row
+    i describes node i+1 of the DBoW2 id space, its parent (0 = root)
+    precedes it. Vectorized: the stock vocabulary has ~1.1M nodes."""
+    n_rows = len(parents)
+    node_depth = np.ones(n_rows, np.int64)
+    for _ in range(max(depth, 1)):
+        parent_depth = np.where(parents > 0, node_depth[parents - 1], 0)
+        nd = parent_depth + 1
+        if (nd == node_depth).all():
+            break
+        node_depth = nd
+    max_depth = int(node_depth.max())
+
+    # Word ids in DBoW2 order: leaves numbered by their order in the file.
+    word_of = np.full(n_rows, -1, np.int64)
+    leaf_rows = np.flatnonzero(is_leaf)
+    word_of[leaf_rows] = np.arange(len(leaf_rows))
+
+    # Bytes -> packed words in the hamming module's order (bit b = byte
+    # b//8 bit b%8 little-endian = word b//32 shift b%32).
+    packed = np.ascontiguousarray(desc_bytes).view("<u4").reshape(-1, 8)
+
+    # Per-level contiguous renumbering, stably grouped by parent, so each
+    # parent's children are contiguous (base + position addressing).
+    local_id = np.full(n_rows + 1, -1, np.int64)  # by DBoW2 id (0 = root)
+    local_id[0] = 0
+    levels_desc, levels_valid, levels_base, levels_word = [], [], [], []
+    for d in range(max_depth):
+        child_rows = np.flatnonzero(node_depth == d + 1)
+        m = 1 if d == 0 else int(np.count_nonzero(node_depth == d))
+        pl = local_id[parents[child_rows]]
+        order = np.argsort(pl, kind="stable")
+        ch = child_rows[order]
+        pl_s = pl[order]
+        counts = np.bincount(pl_s, minlength=m)
+        total = len(ch)
+        starts = np.cumsum(counts) - counts
+        slot = np.arange(total) - np.repeat(starts, counts)
+        if (slot >= k).any():
+            raise ValueError("node with more than k children")
+        cdesc = np.zeros((m, k, 8), np.uint32)
+        cvalid = np.zeros((m, k), bool)
+        cdesc[pl_s, slot] = packed[ch]
+        cvalid[pl_s, slot] = True
+        levels_desc.append(torch.from_numpy(cdesc.view(np.int32)))
+        levels_valid.append(torch.from_numpy(cvalid))
+        levels_base.append(torch.from_numpy(starts.astype(np.int64)))
+        levels_word.append(torch.from_numpy(word_of[ch]))
+        local_id = np.full(n_rows + 1, -1, np.int64)
+        local_id[ch + 1] = np.arange(total)
+    return Vocabulary(
+        children_packed=tuple(levels_desc),
+        children_valid=tuple(levels_valid),
+        child_base=tuple(levels_base),
+        node_word=tuple(levels_word),
+        word_weight=torch.from_numpy(weights[leaf_rows].astype(np.float32)),
+        k=k,
+        depth=max_depth,
+        levelsup_depth=min(levelsup, max_depth - 1),
     )

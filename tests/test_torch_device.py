@@ -5,7 +5,11 @@ keyframe counts agree within max(2, 25%), relocalization counts agree,
 the map stays on the card and every frame's 8 pyramid levels went
 through the FAST kernel in one launch. Also: the renderer on the card equals it on the
 CPU, and the LoopCloser on a CUDA drifted-ring map closes the same loop
-as on the CPU, poses within 1e-3 after correction and global BA. Marked
+as on the CPU, poses within 1e-3 after correction and global BA; Systems
+of the depth sensors built with no device land on the card, initialize
+from one frame and launch the kernel twice a stereo frame, once an RGB-D
+frame; match_stereo on the card gives the CPU's depth mask, depths within
+1e-3 relative. Marked
 `cuda`; imports no JAX, so it runs with
 
     python -m pytest -o addopts="" --noconftest -p no:cacheprovider -q -m cuda tests/test_torch_device.py
@@ -124,3 +128,69 @@ def test_loop_closer_on_card_matches_cpu():
     torch.testing.assert_close(pose_g, pose_c, rtol=1e-3, atol=1e-3)
     assert torch.equal(ok_g, ok_c)
     torch.testing.assert_close(xyz_g[ok_c], xyz_c[ok_c], rtol=1e-3, atol=1e-3)
+
+
+STEREO_CAM = dict(CAM, bf=260.0 * 0.2)
+
+
+def _stereo_frames(n):
+    scene = synthetic.PlanarScene.default(np.random.default_rng(0), depth=5.0, second_depth=8.0,
+                                          extent=12.0, tex_size=768)
+    K = np.asarray(Camera.create(**STEREO_CAM).K)
+    poses = synthetic.orbit_trajectory(20, radius=0.5)[:n]
+    return scene, K, poses
+
+
+@pytest.mark.cuda
+def test_depth_sensors_land_on_card():
+    """track_stereo and track_rgbd through Systems built with no device."""
+    from orb_slam_cuda_tpu_torch.engine import Sensor
+
+    _need_card()
+    scene, K, poses = _stereo_frames(4)
+    cfg = dict(CFG, stereo_init_min_features=300, kf_ref_ratio=1.1, max_frames_between_kf=8)
+    for sensor, per_frame in ((Sensor.STEREO, 2), (Sensor.RGBD, 1)):
+        slam = System(SystemConfig(camera=Camera.create(**STEREO_CAM), sensor=sensor, **cfg))
+        assert slam.device.type == "cuda"
+        fast_kernel.launches = 0
+        for i, T in enumerate(poses):
+            if sensor == Sensor.STEREO:
+                pose = slam.track_stereo(*scene.render_stereo(K, T, 0.2, W, H, device="cuda"), i * 0.1)
+            else:
+                pose = slam.track_rgbd(*scene.render_with_depth(K, T, W, H, device="cuda"), i * 0.1)
+            assert pose is not None, (sensor, i)
+        assert fast_kernel.launches == per_frame * len(poses)
+        st = slam.state
+        assert all(getattr(st, f).device.type == "cuda" for f in st._fields)
+        lf = slam.last_frame
+        assert lf.depth.device.type == "cuda" and int((lf.depth > 0).sum()) > 0.5 * int(lf.valid.sum())
+
+
+@pytest.mark.cuda
+def test_match_stereo_on_card_matches_cpu():
+    """5 stereo frames: the same features (extracted on the CPU) matched on
+    both devices, with the SAD refinement."""
+    from orb_slam_cuda_tpu_torch.engine import stereo
+    from orb_slam_cuda_tpu_torch.frontend.extractor import ExtractorConfig, ORBExtractor
+    from orb_slam_cuda_tpu_torch.ops import hamming
+
+    _need_card()
+    scene, K, poses = _stereo_frames(5)
+    cam = Camera.create(**STEREO_CAM)
+    ext = ORBExtractor(ExtractorConfig(n_features=600), H, W, device="cpu")
+    sf = tuple(1.2**i for i in range(8))
+    for T in poses:
+        left, right = scene.render_stereo(K, T, 0.2, W, H)
+        lf, rf = ext(left), ext(right)
+        out = {}
+        for dev in ("cpu", "cuda"):
+            l, r = [type(f)(*[t.to(dev) for t in f]) for f in (lf, rf)]
+            ur, depth = stereo.match_stereo(
+                l.uv, l.octave, hamming.bipolar(l.desc), l.valid, r.uv, r.octave, hamming.bipolar(r.desc),
+                r.valid, cam, sf, left_img=left.to(dev), right_img=right.to(dev))
+            assert depth.device.type == dev
+            out[dev] = (ur.cpu(), depth.cpu())
+        mask = out["cpu"][1] > 0
+        assert torch.equal(mask, out["cuda"][1] > 0) and int(mask.sum()) > 0.5 * int(lf.valid.sum())
+        torch.testing.assert_close(out["cuda"][1][mask], out["cpu"][1][mask], rtol=1e-3, atol=0)
+        torch.testing.assert_close(out["cuda"][0][mask], out["cpu"][0][mask], rtol=1e-3, atol=0)

@@ -204,3 +204,22 @@ def test_pyramid_kernel_matches_plain_on_card(texture):
         fast_kernel.fast_corners_pyramid([levels[0], levels[1].cpu()], 20.0, 7.0)
     with pytest.raises(ValueError):
         fast_kernel.fast_corners_pyramid([noise] * 17, 20.0, 7.0)
+
+
+@pytest.mark.cuda
+def test_pyramid_kernel_matches_plain_at_tum_shapes():
+    """The 8 levels of a 640x480 frame (RGB-D at TUM width), one launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU or interpret mode")
+    tum = (480, 640)
+    img = synthetic.make_texture(*tum, np.random.default_rng(1)).astype(np.float32)
+    levels = [lv.contiguous() for lv in image_ops.build_pyramid(torch.as_tensor(img, device="cuda"), 8, 1.2)]
+    assert [tuple(lv.shape) for lv in levels] == image_ops.pyramid_shapes(*tum, 8, 1.2)
+    assert tuple(levels[-1].shape) == (134, 179)
+    before = fast_kernel.launches
+    maps = fast_kernel.fast_corners_pyramid(levels, 20.0, 7.0, 32, 19)
+    torch.cuda.synchronize()
+    assert fast_kernel.launches == before + 1
+    for lv, m in zip(levels, maps):
+        assert int((m > 0).sum()) > 0
+        assert torch.equal(m, fast.fast_corners_plain(lv, 20.0, 7.0, 32, 19)), tuple(lv.shape)

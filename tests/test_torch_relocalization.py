@@ -83,3 +83,25 @@ def test_relocalize_matches_reference(ring, keep):
         assert_same(jmp, tmp, what="bindings")
         assert_same(jpose, tpose, rtol=1e-4, atol=1e-4, what="pose")
         assert np.abs(to_np(tpose) - to_np(ring["tst"].kf_pose[5])).max() < 0.05
+
+
+@pytest.mark.parametrize("keep", [250, 40], ids=["strong", "weak"])
+def test_relocalize_trace_names_the_refusing_rung(ring, keep):
+    """`trace` receives one row per candidate tried and changes nothing:
+    every row but an accepted last one names the rung that refused it."""
+    jframe = ring_fixture.TestRelocalizationGate()._frame_from_keyframe(ring["jst"], ring["vocab"], 5, keep=keep)
+    frame = convert.frame_data(jframe)
+    args = (ring["tst"], ring["tdb"], frame, TCAM, ring["vocab"].n_words, tuple(CFG.scale_factors))
+    pose0, mp0, ok0 = treloc.relocalize(*args, sampler=jax_sampler)
+    trace = []
+    pose, mp, ok = treloc.relocalize(*args, sampler=jax_sampler, trace=trace)
+    assert ok == ok0 == (keep == 250) and trace
+    rungs = {"bow_matches", "pnp", "ladder"}
+    assert all(row["refused_at"] in rungs for row in trace[:-1])
+    if ok:
+        assert_same(mp0, mp, what="bindings")
+        assert_same(pose0, pose, what="pose")
+        assert "refused_at" not in trace[-1] and trace[-1]["n_good"] >= treloc.MIN_INLIERS_ACCEPT
+    else:
+        assert trace[-1]["refused_at"] in rungs
+    assert all(row["bow_matches"] >= 0 and 0 <= row["kf"] < ring["tst"].kf_valid.shape[0] for row in trace)

@@ -1,11 +1,23 @@
-"""The whole monocular slice, held against the JAX System by outcome on
-the end-to-end orbit fixture (identical rendered frames to both): each
+"""The whole System, held against the JAX System by outcome on the
+end-to-end orbit fixture (identical rendered frames to both): each
 tracks > 85% of frames with ATE < 0.10 m, keyframe counts agree within
 max(2, 25%), relocalization counts agree; the same with loop closing on.
 Also: relocalization after a blackout, the refused configurations, the
 synchronous-mapping path, trajectory export, and (slow tier) loop closure
 on a circuit against the same run with loop closing off, and
-chip_smoke.py's full-size paths on the CPU."""
+chip_smoke.py's full-size paths on the CPU (the RGB-D one through both
+packages, against its 1% gate).
+
+RGB-D and stereo (the fixtures of tests/test_stereo_rgbd.py, identical
+frames to both Systems): tracked ratio and keyframe count equal, ATE
+without scale alignment < 0.08 m in both and within 25% or 5 mm of each
+other; stereo has a pose at frame 0 and a metric trajectory span within
+0.2 of the truth. The stereo rows of the local-BA gather on the reference's
+RGB-D map: exact indices, values within 1e-6. Localization-only mode
+inserts no keyframe and leaves the map arrays as they were; a saved map
+loads into a fresh System, which relocalizes and tracks. Slow tier: the
+two natural-policy sweeps and the mapless visual-odometry walk of
+tests/test_stereo_rgbd.py through the port, with that file's thresholds."""
 
 import os
 import sys
@@ -22,7 +34,10 @@ from orb_slam_cuda_tpu.utils import synthetic as jsyn
 from orb_slam_cuda_tpu_torch.engine import Sensor, System, SystemConfig
 from orb_slam_cuda_tpu_torch.geometry.camera import Camera
 from orb_slam_cuda_tpu_torch.utils import synthetic as tsyn
+from orb_slam_cuda_tpu_torch.utils import convert
 from orb_slam_cuda_tpu_torch.utils.evaluation import ate_rmse, camera_centers
+from torch_parity import (STEREO_BASELINE, STEREO_CAM, STEREO_CFG, STEREO_H, STEREO_W, assert_same,
+                          stereo_scene)
 
 torch.set_num_threads(2)
 W, H = 320, 240
@@ -146,9 +161,9 @@ def test_relocalizes_after_blackout():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(sensor=Sensor.STEREO), dict(enable_loop_closing=True, mesh=object()), dict(pipeline_lag=2),
+    dict(enable_loop_closing=True, mesh=object()), dict(pipeline_lag=2),
     dict(mesh=object()), dict(cluster_refine_interval=4),
-], ids=["stereo", "loop_closing", "pipeline_lag", "mesh", "cluster_refine"])
+], ids=["loop_closing", "pipeline_lag", "mesh", "cluster_refine"])
 def test_unported_configurations_refused(kw):
     cfg = dict(CFG, enable_loop_closing=False)
     cfg.update(kw)
@@ -198,3 +213,299 @@ def test_chip_smoke_main_path_on_cpu():
 
     cam, poses, frames = chip_smoke.make_fixture()
     chip_smoke.phase_main_path(cam, poses, frames, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# Stereo and RGB-D
+
+
+def _depth_frames(sensor: str, poses, scene=None):
+    """[(image, depth map) or (left, right)] from the reference renderer."""
+    scene = scene or stereo_scene()
+    K = np.asarray(JCamera.create(**STEREO_CAM).K)
+    if sensor == "RGBD":
+        return [scene.render_with_depth(K, T, STEREO_W, STEREO_H) for T in poses]
+    return [scene.render_stereo(K, T, STEREO_BASELINE, STEREO_W, STEREO_H) for T in poses]
+
+
+def _jsystem(sensor, **kw):
+    return JSystem(JConfig(camera=JCamera.create(**STEREO_CAM), sensor=JSensor[sensor], **dict(STEREO_CFG, **kw)))
+
+
+def _tsystem(sensor, **kw):
+    return System(SystemConfig(camera=Camera.create(**STEREO_CAM), sensor=Sensor[sensor],
+                               **dict(STEREO_CFG, **kw)), device="cpu")
+
+
+def _drive(slam, sensor, frames, t0=0.0):
+    """Track the frames; returns the poses (None where untracked)."""
+    track = slam.track_rgbd if sensor == "RGBD" else slam.track_stereo
+    return [track(a, b, t0 + i * 0.1) for i, (a, b) in enumerate(frames)]
+
+
+def _metric(slam, poses):
+    """(ATE without scale alignment, estimated / true trajectory span)."""
+    ts, est = camera_centers(slam.get_trajectory())
+    gt = {round(i * 0.1, 6): np.linalg.inv(T)[:3, 3] for i, T in enumerate(poses)}
+    g = np.asarray([gt[round(t, 6)] for t in ts])
+    span = np.linalg.norm(est.max(0) - est.min(0)) / np.linalg.norm(g.max(0) - g.min(0))
+    return ate_rmse(est, g, with_scale=False), span
+
+
+@pytest.fixture(scope="module", params=["RGBD", "STEREO"])
+def depth_runs(request):
+    """Both Systems over the same frames: 20 RGB-D frames, 12 stereo pairs."""
+    sensor = request.param
+    poses = jsyn.orbit_trajectory(20 if sensor == "RGBD" else 25, radius=0.5)[:20 if sensor == "RGBD" else 12]
+    frames = _depth_frames(sensor, poses)
+    jslam, tslam = _jsystem(sensor), _tsystem(sensor)
+    jposes, tposes = _drive(jslam, sensor, frames), _drive(tslam, sensor, frames)
+    return sensor, poses, (jslam, jposes), (tslam, tposes)
+
+
+def test_depth_sensors_match_reference_by_outcome(depth_runs):
+    sensor, poses, (jslam, jposes), (tslam, tposes) = depth_runs
+    (jate, jspan), (tate, tspan) = _metric(jslam, poses), _metric(tslam, poses)
+    print(f"{sensor}: reference {jslam.get_status()} ATE {jate:.4f} span {jspan:.4f}; "
+          f"port {tslam.get_status()} ATE {tate:.4f} span {tspan:.4f}")
+    # One frame initializes from its own depths.
+    assert jposes[0] is not None and tposes[0] is not None
+    np.testing.assert_array_equal(tposes[0], np.eye(4, dtype=np.float32))
+    assert tslam.tracked_ratio() == jslam.tracked_ratio() > 0.85
+    assert tslam.stats.n_keyframes == jslam.stats.n_keyframes
+    assert tslam.stats.n_reloc == jslam.stats.n_reloc == 0
+    assert jate < 0.08 and tate < 0.08
+    assert abs(tate - jate) <= max(0.25 * jate, 0.005)
+    assert abs(tspan - 1.0) < 0.2 and abs(jspan - 1.0) < 0.2  # metric scale
+    share = lambda f: float(np.sum(np.asarray(f.depth.cpu() if hasattr(f.depth, "cpu") else f.depth) > 0))  # noqa: E731
+    assert share(tslam.last_frame) > 0.5 * int(tslam.last_frame.valid.sum())
+    assert abs(share(tslam.last_frame) - share(jslam.last_frame)) <= 0.1 * share(jslam.last_frame)
+
+
+def test_depth_map_holds_depth_points(depth_runs):
+    """Keyframes of a depth sensor spawn points from their own depths, and
+    the map stays consistent."""
+    sensor, _, (jslam, _), (tslam, _) = depth_runs
+    st = tslam.state
+    bound = st.kf_mp[st.kf_mp >= 0].long()
+    assert bool(st.mp_valid[bound].all())
+    live = torch.as_tensor(tslam.kf_order)
+    assert bool((st.kf_depth[live] > 0).any(dim=1).all()) and bool((st.kf_right[live] >= 0).any(dim=1).all())
+    nj, nt = int(np.asarray(jslam.state.mp_valid).sum()), int(st.mp_valid.sum())
+    assert nt > 300 and abs(nt - nj) <= 0.25 * nj, (nj, nt)
+    assert tslam.mapper.n_tri_nb == 10 and tslam.th_depth == pytest.approx(35.0 * STEREO_BASELINE)
+
+
+def test_local_ba_gather_carries_stereo_rows(depth_runs):
+    """gather_local_ba_problem on the reference's own map, whose keyframes
+    hold u_right >= 0: the same problem in both packages."""
+    from orb_slam_cuda_tpu.engine import local_mapping as jlm
+    from orb_slam_cuda_tpu_torch.engine import local_mapping as tlm
+
+    sensor, _, (jslam, _), _ = depth_runs
+    jslam._drain_background()
+    kf = jslam.kf_order[-1]
+    inv_sig = 1.0 / np.asarray(jslam.map_cfg.level_sigma2, np.float32)
+    jp, jcams, jpts = jlm.gather_local_ba_problem(jslam.state, kf, jslam.cam, inv_sig,
+                                                  n_local=4, n_fixed=2, n_points=512)
+    tp, tcams, tpts = tlm.gather_local_ba_problem(convert.map_state(jslam.state), kf, convert.camera(jslam.cam),
+                                                  inv_sig.tolist(), n_local=4, n_fixed=2, n_points=512)
+    assert_same(jcams, tcams, what="camera slots")
+    assert_same(jpts, tpts, what="point slots")
+    for f in ("obs_cam", "obs_pt", "obs_valid", "cam_fixed", "pt_valid"):
+        assert_same(getattr(jp, f), getattr(tp, f), what=f)
+    valid = np.asarray(jp.obs_valid)
+    for f in ("obs_uv", "obs_ur", "obs_inv_sigma2"):
+        assert_same(np.asarray(getattr(jp, f))[valid], getattr(tp, f).numpy()[valid], rtol=1e-6, atol=1e-6, what=f)
+    assert (np.asarray(jp.obs_ur)[valid] >= 0).mean() > 0.5, "the fixture should hold stereo observations"
+
+
+@pytest.fixture(scope="module")
+def port_rgbd_short():
+    """The port's RGB-D System after 10 frames, with the frames that follow."""
+    poses = jsyn.orbit_trajectory(20, radius=0.5)
+    frames = _depth_frames("RGBD", poses)
+    slam = _tsystem("RGBD")
+    _drive(slam, "RGBD", frames[:10])
+    assert slam.get_status()["state"] == "OK"
+    return slam, frames
+
+
+def test_localization_mode_freezes_the_map(port_rgbd_short):
+    slam, frames = port_rgbd_short
+    slam.set_localization_mode(True)
+    before, kfs, order = slam.state, slam.stats.n_keyframes, list(slam.kf_order)
+    poses = _drive(slam, "RGBD", frames[10:15], t0=1.0)
+    slam.set_localization_mode(False)
+    assert all(p is not None for p in poses)
+    assert slam.stats.n_keyframes == kfs and slam.kf_order == order and not slam._bg
+    for f in before._fields:
+        if f not in ("mp_visible", "mp_found"):  # tracking's visibility counters go on
+            assert torch.equal(getattr(before, f), getattr(slam.state, f)), f
+    assert not slam.get_status()["localization_only"]
+
+
+def test_saved_map_loads_relocalizes_and_tracks(port_rgbd_short, tmp_path):
+    slam, frames = port_rgbd_short
+    path = str(tmp_path / "map.npz")
+    slam.save_map(path)
+    fresh = _tsystem("RGBD")
+    fresh.load_map(path)
+    assert fresh.get_status()["state"] == "LOST" and fresh.localization_only
+    for f in slam.state._fields:
+        if f != "covis":  # recomputed on load
+            assert torch.equal(getattr(slam.state, f), getattr(fresh.state, f)), f
+    assert fresh.kf_order == slam.kf_order and fresh.kf_timestamps == slam.kf_timestamps
+    poses = _drive(fresh, "RGBD", frames[2:8], t0=5.0)
+    st = fresh.get_status()
+    print(st, fresh.reloc_stage_stats)
+    assert poses[0] is not None, "should relocalize on the first frame"
+    assert st["relocalizations"] >= 1 and st["state"] == "OK" and sum(p is not None for p in poses) >= 5
+    assert st["keyframes"] == len(slam.kf_order), "localization-only mode inserts no keyframe"
+    # The relocalized pose agrees with the pose the mapping run gave that frame.
+    want = slam.get_trajectory()[2][1]
+    np.testing.assert_allclose(np.linalg.inv(poses[0])[:3, 3], np.linalg.inv(want)[:3, 3], atol=0.05)
+
+
+def test_trajectory_exports_of_a_depth_run(port_rgbd_short, tmp_path):
+    slam, _ = port_rgbd_short
+    n_ok = sum(ok for _, _, ok in slam.get_trajectory())
+    for name, cols in (("save_trajectory_tum", 8), ("save_trajectory_kitti", 12)):
+        path = tmp_path / f"{name}.txt"
+        getattr(slam, name)(str(path))
+        rows = [line.split() for line in path.read_text().splitlines()]
+        assert len(rows) == n_ok and all(len(r) == cols for r in rows)
+    path = tmp_path / "kf.txt"
+    slam.save_keyframe_trajectory_tum(str(path))
+    assert len(path.read_text().splitlines()) == len(slam.kf_order)
+
+
+def test_sensor_entry_points_are_checked():
+    slam = _tsystem("RGBD")
+    img = np.zeros((STEREO_H, STEREO_W), np.uint8)
+    with pytest.raises(AssertionError):
+        slam.track_monocular(img, 0.0)
+    with pytest.raises(AssertionError):
+        slam.track_stereo(img, img, 0.0)
+    # A blank frame cannot initialize: no pose, still waiting for images.
+    assert slam.track_rgbd(img, np.zeros((STEREO_H, STEREO_W), np.float32), 0.0) is None
+    assert slam.tracking_state.name == "NO_IMAGES_YET" and slam.stats.n_keyframes == 0
+
+
+def _sweep_trajectory(n_frames, span=2.4, yaw_amp=0.03):
+    """tests/test_stereo_rgbd.py's lateral dolly across the scene."""
+    from orb_slam_cuda_tpu_torch.geometry import se3
+
+    poses = []
+    for i in range(n_frames):
+        s = i / max(n_frames - 1, 1)
+        xi = np.array([-span / 2 + span * s, 0.0, 0.0, 0.0, yaw_amp * np.sin(2 * np.pi * s), 0.0], np.float32)
+        poses.append(se3.exp(torch.as_tensor(xi)).numpy().astype(np.float64))
+    return poses
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("sensor,n,span", [("STEREO", 48, 2.9), ("RGBD", 64, 3.9)])
+def test_policy_fires_naturally(sensor, n, span):
+    """The reference keyframe policy with no override: the near plane lies
+    inside ThDepth, so the close-point census is exercised."""
+    scene = jsyn.PlanarScene.default(np.random.default_rng(0), depth=3.0, second_depth=9.0,
+                                     extent=16.0, tex_size=1024)
+    poses = _sweep_trajectory(n, span)
+    cfg = {k: v for k, v in STEREO_CFG.items() if k not in ("kf_ref_ratio", "max_frames_between_kf")}
+    slam = System(SystemConfig(camera=Camera.create(**STEREO_CAM), sensor=Sensor[sensor], **cfg), device="cpu")
+    _drive(slam, sensor, _depth_frames(sensor, poses, scene))
+    ate, _ = _metric(slam, poses)
+    print(slam.get_status(), f"ATE {ate:.3f}")
+    assert slam.tracked_ratio() > 0.9
+    assert 3 <= slam.stats.n_keyframes <= 30 and int(slam.state.kf_valid.sum()) >= 3
+    assert ate < 0.40
+
+
+@pytest.mark.slow
+def test_vo_tracks_through_mapless_region():
+    """Localization-only mode survives a mapless region on frame-to-frame
+    visual odometry, then takes up the map again."""
+    scene = jsyn.PlanarScene.default(np.random.default_rng(0), depth=5.0, second_depth=8.0,
+                                     extent=48.0, tex_size=3072)
+    slam = _tsystem("RGBD")
+    _drive(slam, "RGBD", _depth_frames("RGBD", jsyn.orbit_trajectory(12, radius=0.5), scene))
+    assert slam.stats.n_keyframes >= 1
+    slam.set_localization_mode(True)
+
+    def walk(xs, t0):
+        poses = []
+        for x in xs:
+            T = np.eye(4)
+            T[0, 3] = -x
+            poses.append(T)
+        return _drive(slam, "RGBD", _depth_frames("RGBD", poses, scene), t0=t0)
+
+    far = walk([0.6 + 0.18 * j for j in range(60)], 10.0)
+    assert slam.stats.n_vo_frames >= 5, f"VO never engaged (vo_frames={slam.stats.n_vo_frames})"
+    assert sum(p is not None for p in far[31:]) >= 10, "lost the pose in the mapless region"
+    assert slam.stats.n_keyframes <= 12
+    reloc_before = slam.stats.n_reloc
+    back = walk([max(0.0, 0.5 - 0.1 * j) for j in range(12)], 30.0)
+    assert sum(p is not None for p in back) >= 6, "did not resume tracking in the mapped region"
+    bound = int((slam.last_frame.mp >= 0).sum())
+    assert slam.stats.n_reloc > reloc_before or bound >= 30, (slam.stats.n_reloc, bound)
+
+
+def _depth_cell_outcomes(sensor, n_frames):
+    """chip_smoke.py's RGB-D or stereo frames (rendered by the port on the
+    CPU) through the reference System and the port: per package the status,
+    the live keyframes, the ATE without scale alignment and the extent."""
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+    import chip_smoke as cs
+
+    kw = dict(n_features=2000, max_keyframes=256, max_points=32768, enable_loop_closing=True,
+              max_frames_between_kf=10, min_frames_between_kf=0, async_mapping=True, pipeline_lag=0,
+              th_depth_factor=cs.TH_DEPTH_FACTOR)
+    if sensor == "RGBD":
+        cam, poses, frames = cs.make_rgbd_fixture("cpu", n_frames=n_frames)
+        dt = cs.RGBD_DT
+        kw.update(n_features=1000, max_frames_between_kf=30, depth_map_factor=1.0 / cs.DEPTH_FACTOR)
+    else:
+        cam, poses, frames = cs.make_stereo_fixture("cpu", n_frames=n_frames)
+        dt = 0.1
+    jcam = JCamera.create(fx=cam.fx, fy=cam.fy, cx=cam.cx, cy=cam.cy, bf=cam.bf, width=cam.width,
+                          height=cam.height)
+    systems = {"reference": JSystem(JConfig(camera=jcam, sensor=getattr(JSensor, sensor), **kw)),
+               "port": System(SystemConfig(camera=cam, sensor=getattr(Sensor, sensor), **kw), device="cpu")}
+    out = {}
+    for name, slam in systems.items():
+        track = slam.track_rgbd if sensor == "RGBD" else slam.track_stereo
+        for i, (first, second) in enumerate(frames):
+            track(first.numpy(), second.numpy(), i * dt)
+        ts, est = camera_centers(slam.get_trajectory())
+        gt_by_t = {round(i * dt, 6): np.linalg.inv(T)[:3, 3] for i, T in enumerate(poses)}
+        gt = np.asarray([gt_by_t[round(t, 6)] for t in ts])
+        out[name] = dict(status=slam.get_status(), live=len(slam.kf_order),
+                         ate=ate_rmse(est, gt, with_scale=False),
+                         extent=float(np.linalg.norm(gt.max(0) - gt.min(0))))
+        print(f"{sensor} cell on the CPU, {n_frames} frames, {name}: {out[name]}")
+    return out
+
+
+@pytest.mark.slow
+def test_rgbd_cell_meets_its_gate_in_both_packages_on_cpu():
+    """The first 240 frames of chip_smoke.py's RGB-D fixture (640x480,
+    1000 features, loop closing on): both Systems track them all and stay
+    under the accuracy config's 1% of the extent (about 12 min)."""
+    for name, o in _depth_cell_outcomes("RGBD", 240).items():
+        assert o["status"]["tracked_ratio"] >= 0.85, (name, o)
+        assert o["ate"] <= 0.01 * o["extent"], (name, o)
+
+
+@pytest.mark.slow
+def test_stereo_cell_keyframe_rate_in_both_packages_on_cpu():
+    """The first 120 pairs of chip_smoke.py's stereo path (1241x376, 2000
+    features) through both Systems: from frame 60 on the close-point rule
+    inserts a keyframe on nearly every frame, in the reference as in the
+    port (about 45 min)."""
+    out = _depth_cell_outcomes("STEREO", 120)
+    ref, port = out["reference"]["status"], out["port"]["status"]
+    for name, o in out.items():
+        assert o["status"]["tracked_ratio"] >= 0.85, (name, o)
+    assert abs(port["keyframes"] - ref["keyframes"]) <= 0.25 * ref["keyframes"], out

@@ -72,3 +72,33 @@ def jax_sampler(site: str, seed: int, valid):
 
     n, k = SAMPLE_SHAPES[site]
     return torch.as_tensor(jax_sets(seed, valid, n, k), device=valid.device)
+
+
+# Stereo / RGB-D fixtures shared by the parity tests: the camera and scene
+# of tests/test_stereo_rgbd.py (320x240, baseline 0.2 m).
+STEREO_W, STEREO_H = 320, 240
+STEREO_BASELINE = 0.2
+STEREO_CAM = dict(fx=260.0, fy=260.0, cx=STEREO_W / 2, cy=STEREO_H / 2, bf=260.0 * STEREO_BASELINE,
+                  width=STEREO_W, height=STEREO_H)
+STEREO_CFG = dict(n_features=600, max_keyframes=64, max_points=8192, enable_loop_closing=False,
+                  max_frames_between_kf=8, stereo_init_min_features=300, kf_ref_ratio=1.1)
+
+
+def stereo_scene(seed: int = 0):
+    """The two-plane scene of tests/test_stereo_rgbd.py, from the reference
+    package's renderer, and the orbit's poses are the caller's."""
+    from orb_slam_cuda_tpu.utils import synthetic
+
+    return synthetic.PlanarScene.default(np.random.default_rng(seed), depth=5.0, second_depth=8.0,
+                                         extent=12.0, tex_size=768)
+
+
+def known_disparity_set(rng, n: int = 64):
+    """Left/right keypoints with identical descriptors, the right ones
+    shifted by the disparity of a known depth (level 0 only)."""
+    desc = rng.integers(0, 2**32, (n, 8), dtype=np.uint32)
+    uv_l = np.stack([rng.uniform(80, 300, n), rng.uniform(10, 230, n)], -1).astype(np.float32)
+    depth = rng.uniform(1.0, 8.0, n).astype(np.float32)
+    uv_r = uv_l.copy()
+    uv_r[:, 0] -= np.float32(STEREO_CAM["bf"]) / depth
+    return desc, uv_l, uv_r, depth
