@@ -54,7 +54,20 @@ Phases, each printing its own lines:
      again: it must relocalize within 3 frames, track 85% of them, insert
      no keyframe and hold the saved map's keyframes and points; every
      candidate that a relocalization refused before the first pose is
-     printed with the rung that refused it.
+     printed with the rung that refused it;
+  9. CLI path: the port's command-line runner, `run.main(argv)` in this
+     process, on the first 120 of the 460 frames of config_mono_tum
+     (640x480, the TUM1.yaml lens k1 0.262, k2 -0.953, k3 1.163, 1000
+     features, 30 fps), generated with the port's tools/accuracy_eval.py
+     and PNG writer into a temporary directory and read back through the
+     port's dataset reader and PNG decoder: --save-tum --diag --timing-dir
+     --save-map; gated on the first pose by frame 60, tracked >= 0.85 of
+     the frames from it on, sim(3) ATE within 1% of the whole config's
+     5.09 m extent, one launch a frame and a finite last pose; then a
+     second `run.main` with --load-map --localization-only on frames 60-79:
+     a pose within 3 frames, 85% tracked, no keyframe, 20 launches. Prints
+     fps, p50/p99 and stage means from the timing CSVs and the PNG decode
+     time a frame.
 Every path builds `System(cfg)` with no device argument: the card is the
 default. Two runs of one code do not give the same poses on the card
 (float scatter-adds sum in no fixed order there, and the keyframe and
@@ -133,6 +146,15 @@ DEPTH_FACTOR = 5000.0  # TUM's: a stored depth of 5000 is 1 m
 PROBE_FRAMES = 30
 VOCAB_K, VOCAB_DEPTH = 10, 6
 SHORT_RUN_FRAMES = 20
+# The CLI path: the first CLI_FRAMES of config_mono_tum's 460 frames, then
+# a localization-only probe on frames CLI_PROBE_FROM.. of them, inside the
+# stretch the map covers (the JAX reference's CLI run of the config first
+# tracks at about frame 31: eval/mono_tum.json, gaps [[0.0, 1.03]]).
+CLI_FRAMES = 120
+CLI_FIRST_POSE_BY = 60
+CLI_PROBE_FROM, CLI_PROBE_FRAMES = 60, 20
+MONO_TUM_EXTENT = 5.09  # the whole config's ground-truth extent, m (eval/mono_tum.json)
+CLI_ATE_GATE = 0.01 * MONO_TUM_EXTENT
 
 
 def log(*a):
@@ -879,6 +901,144 @@ def phase_rgbd_path(cam, poses, frames, device=None):
     return launches + p_launches
 
 
+def _cli(argv):
+    """`orb_slam_cuda_tpu_torch.run.main(argv)` in this process, its FAST
+    launches counted from 0; its stderr is captured and printed. Returns
+    (launches, stderr lines, seconds). A non-zero return raises."""
+    import contextlib
+    import io
+
+    from orb_slam_cuda_tpu_torch import run
+    from orb_slam_cuda_tpu_torch.ops import fast_kernel
+
+    err = io.StringIO()
+    fast_kernel.launches = 0  # count this run's launches only
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        rc = run.main(argv)
+    seconds = time.perf_counter() - t0
+    launches = fast_kernel.launches
+    lines = err.getvalue().splitlines()
+    for line in lines:
+        log(f"  cli: {line}")
+    if rc != 0:
+        raise AssertionError(f"orb_slam_cuda_tpu_torch.run.main returned {rc}")
+    return launches, lines, seconds
+
+
+def _read_csv(path):
+    import csv
+
+    with open(path) as f:
+        return list(csv.DictReader(f))
+
+
+def frame_stage_ms(timing_dir):
+    """Per frame, the sum of its rows over the StageTimer CSVs (extraction,
+    frame build, tracking and the mapping units drained before it): the
+    time `track_monocular` spent in its stages, in ms."""
+    acc = {}
+    for name in ("times.csv", "timesTracking.csv", "timesMapping.csv"):
+        path = os.path.join(timing_dir, name)
+        if os.path.exists(path):
+            for row in _read_csv(path):
+                acc[int(row["frame"])] = acc.get(int(row["frame"]), 0.0) + int(row["time"]) / 1e6
+    return [acc.get(i, 0.0) for i in range(max(acc) + 1)] if acc else []
+
+
+def phase_cli_path(device=None):
+    """The port's CLI on the distorted TUM monocular configuration: the
+    first CLI_FRAMES frames of config_mono_tum (640x480, TUM1.yaml lens,
+    1000 features, 30 fps) generated with the port's tool into a temporary
+    directory, mapped through `run.main` with --save-tum --diag
+    --timing-dir --save-map, then a localization-only probe through a
+    second `run.main` with --load-map on frames CLI_PROBE_FROM.. listed in
+    a second sequence directory. With no `device` the CLI takes its
+    default, the card; a CPU device is the tests' rehearsal."""
+    import numpy as np
+
+    from orb_slam_cuda_tpu_torch.io import png
+    from orb_slam_cuda_tpu_torch.tools import accuracy_eval
+
+    dev_args = [] if device is None else ["--device", str(device)]
+    on_gpu = device is None or str(device).startswith("cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        seq = os.path.join(tmp, "mono_tum")
+        t0 = time.perf_counter()
+        args = accuracy_eval.make_mono_tum(seq, device="cuda" if device is None else device,
+                                           n_frames=CLI_FRAMES)
+        gen_s = time.perf_counter() - t0
+        log(f"cli fixture: the first {CLI_FRAMES} of config_mono_tum's 460 frames generated in {gen_s:.1f} s")
+        traj, diag = os.path.join(tmp, "traj.txt"), os.path.join(tmp, "diag.csv")
+        timing, map_path = os.path.join(tmp, "timing"), os.path.join(tmp, "map.npz")
+        os.makedirs(timing)
+        launches, lines, run_s = _cli(args + ["--save-tum", traj, "--diag", diag, "--timing-dir", timing,
+                                              "--save-map", map_path] + dev_args)
+        rows = _read_csv(diag)
+        ok = [r["state"] == "OK" for r in rows]
+        first = ok.index(True) if any(ok) else None
+        tracked_after = sum(ok[first:]) / len(ok[first:]) if first is not None else 0.0
+        ate, extent, n_scored, extras = accuracy_eval.score(seq, traj)
+        last = np.loadtxt(traj, ndmin=2)[-1]
+        ms = np.asarray(frame_stage_ms(timing))
+        p50, p99 = np.percentile(ms, [50, 99])
+        rgb = sorted(os.listdir(os.path.join(seq, "rgb")))
+        t1 = time.perf_counter()
+        for name in rgb:
+            png.read_gray(os.path.join(seq, "rgb", name))
+        decode_ms = (time.perf_counter() - t1) / len(rgb) * 1e3
+        log(f"cli path: {len(rows)} frames in {run_s:.1f} s; first pose at frame {first}, tracked "
+            f"{sum(ok)} ({tracked_after:.4f} of the frames from the first pose on), keyframes "
+            f"{rows[-1]['keyframes']}, relocalizations {rows[-1]['relocs']}; ATE sim(3) {ate:.4f} m over "
+            f"{n_scored} frames: {100 * ate / extent:.3f}% of this cut's {extent:.2f} m extent, "
+            f"{100 * ate / MONO_TUM_EXTENT:.3f}% of the whole config's {MONO_TUM_EXTENT} m; {extras}; "
+            f"fast launches {launches}")
+        log(f"cli path frames 0-{len(ms) - 1} (stage time a frame, timing CSVs): {len(ms) / (ms.sum() / 1e3):.2f} fps, "
+            f"p50 {p50:.2f} ms, p99 {p99:.2f} ms, max {ms.max():.2f} ms; PNG decode {decode_ms:.2f} ms a frame "
+            f"(native, {len(rgb)} frames 640x480)")
+        for name in ("times.csv", "timesTracking.csv", "timesMapping.csv"):
+            path = os.path.join(timing, name)
+            rows_t = [(int(r["frame"]), r["name"], 0, int(r["time"])) for r in _read_csv(path)] \
+                if os.path.exists(path) else []
+            log(f"cli path stage means {name}, frames 0-{len(ms) - 1}: " + stage_means(rows_t, 0))
+        want = len(rows) if on_gpu else 0
+        check_gates("cli path", {
+            f"first pose by frame {CLI_FIRST_POSE_BY}": first is not None and first < CLI_FIRST_POSE_BY,
+            "tracked >= 0.85 of the frames from the first pose on": tracked_after >= 0.85,
+            f"ATE sim(3) <= {CLI_ATE_GATE:.4f} m": ate <= CLI_ATE_GATE,
+            f"fast launches == {want} (frames read)": launches == want and len(rows) == CLI_FRAMES,
+            "last pose finite": bool(np.isfinite(last).all()),
+            "shutdown line printed": any(line.startswith("tracked ") for line in lines),
+        })
+
+        # Localization-only probe: frames CLI_PROBE_FROM.. through the saved map.
+        probe_seq = os.path.join(tmp, "probe")
+        os.makedirs(probe_seq)
+        with open(os.path.join(seq, "rgb.txt")) as f:
+            entries = f.read().split("\n")[CLI_PROBE_FROM:CLI_PROBE_FROM + CLI_PROBE_FRAMES]
+        with open(os.path.join(probe_seq, "rgb.txt"), "w") as f:
+            f.write("".join(f"{ts} ../mono_tum/{rel}\n" for ts, rel in (e.split() for e in entries)))
+        p_diag = os.path.join(tmp, "probe_diag.csv")
+        p_args = [a if a != seq else probe_seq for a in args]
+        p_launches, _, p_s = _cli(p_args + ["--load-map", map_path, "--localization-only", "--max-frames",
+                                            str(CLI_PROBE_FRAMES), "--diag", p_diag] + dev_args)
+        p_rows = _read_csv(p_diag)
+        p_ok = [r["state"] == "OK" for r in p_rows]
+        p_first = p_ok.index(True) if any(p_ok) else None
+        kfs = {int(r["keyframes"]) for r in p_rows}
+        log(f"cli localization probe (frames {CLI_PROBE_FROM}-{CLI_PROBE_FROM + CLI_PROBE_FRAMES - 1}, map "
+            f"{os.path.getsize(map_path) / 1e6:.2f} MB): first pose at frame {p_first}, tracked {sum(p_ok)} of "
+            f"{len(p_rows)} in {p_s:.1f} s, keyframe column {sorted(kfs)}, fast launches {p_launches}")
+        p_want = len(p_rows) if on_gpu else 0
+        check_gates("cli localization probe", {
+            "first pose within 3 frames": p_first is not None and p_first < 3,
+            "tracked >= 0.85 of the frames": sum(p_ok) >= 0.85 * len(p_rows),
+            "keyframe column never grows": len(kfs) == 1,
+            f"fast launches == {p_want}": p_launches == p_want and len(p_rows) == CLI_PROBE_FRAMES,
+        })
+    return launches + p_launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     card = phase_device()
@@ -913,6 +1073,8 @@ def main() -> int:
     launches += timed("stereo path", phase_stereo_path, *stereo)
     del stereo
     launches += timed("rgbd path", phase_rgbd_path, *rgbd)
+    del rgbd
+    launches += timed("cli path", phase_cli_path)
     log("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
         + f"; total {time.perf_counter() - t_start:.1f} s")
     log(f"card: {card}")

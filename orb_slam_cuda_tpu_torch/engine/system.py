@@ -183,6 +183,7 @@ class System:
         self.kf_timestamps = {}
         self.localization_only = False
         self.stats = TrackStats()
+        self._last_map_change_idx = -1
         self.timer = StageTimer(enabled=True)
         self.reloc_stage_stats = {}
         self.reloc_trace = None  # a list here receives every relocalization candidate's outcome
@@ -832,6 +833,15 @@ class System:
 
     def tracked_ratio(self):
         return self.stats.n_tracked / max(self.stats.n_frames, 1)
+
+    def map_changed(self) -> bool:
+        """True once per map mutation epoch, keyframes inserted plus loops
+        closed (reference System::MapChanged, src/System.cc:123-125, served
+        over the ROS query/response channel, ros_mono.cc:148-159)."""
+        idx = self.stats.n_keyframes + (self.loop_closer.n_loops_closed if self.loop_closer else 0)
+        changed = idx != self._last_map_change_idx
+        self._last_map_change_idx = idx
+        return changed
 
     def get_status(self) -> dict:
         """Health snapshot."""

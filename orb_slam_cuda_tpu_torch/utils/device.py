@@ -3,6 +3,7 @@ caller asks for the CPU."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -17,3 +18,8 @@ def resolve(device="cuda") -> torch.device:
             "pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+def host(x) -> np.ndarray:
+    """A tensor on any device, or anything `np.asarray` takes, as numpy."""
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)

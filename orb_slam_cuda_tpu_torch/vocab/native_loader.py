@@ -13,17 +13,16 @@ falls back to another parser.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import subprocess
 
 import numpy as np
 
-_ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", ".."))
-SOURCE = os.path.join(_ROOT, "native", "vocab_loader.cpp")
-BUILD_DIR = os.path.join(_ROOT, "build", "native")
-COMPILER = "g++"
-FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
+from ..utils import native_build
+
+SOURCE = os.path.join(native_build.ROOT, "native", "vocab_loader.cpp")
+BUILD_DIR = native_build.BUILD_DIR
+COMPILER = native_build.COMPILER
+FLAGS = native_build.FLAGS
 
 _lib = None
 
@@ -43,22 +42,7 @@ class _VocabData(ctypes.Structure):
 def build() -> str:
     """Compile the scanner if its library is not there yet; returns the
     library's path. The name carries a hash of the source and the flags."""
-    with open(SOURCE, "rb") as f:
-        tag = hashlib.sha256(f.read() + " ".join(FLAGS).encode()).hexdigest()[:12]
-    out = os.path.join(BUILD_DIR, f"libvocab_loader_{tag}.so")
-    if os.path.exists(out):
-        return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [COMPILER, *FLAGS, SOURCE, "-o", tmp]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-    except OSError as e:
-        raise RuntimeError(f"native vocabulary parser: cannot run {COMPILER!r}: {e}") from e
-    if proc.returncode != 0:
-        raise RuntimeError(f"native vocabulary parser: {' '.join(cmd)} failed:\n{proc.stderr}")
-    os.replace(tmp, out)
-    return out
+    return native_build.build(SOURCE, "native vocabulary parser", FLAGS, BUILD_DIR, COMPILER)
 
 
 def _load():

@@ -9,7 +9,9 @@ as on the CPU, poses within 1e-3 after correction and global BA; Systems
 of the depth sensors built with no device land on the card, initialize
 from one frame and launch the kernel twice a stereo frame, once an RGB-D
 frame; match_stereo on the card gives the CPU's depth mask, depths within
-1e-3 relative. Marked
+1e-3 relative; the CLI (`run.main` with no --device) runs on the card
+with one launch a frame, writing its frames with the port's PNG writer,
+and powermon reads the card's bytes in use. Marked
 `cuda`; imports no JAX, so it runs with
 
     python -m pytest -o addopts="" --noconftest -p no:cacheprovider -q -m cuda tests/test_torch_device.py
@@ -194,3 +196,38 @@ def test_match_stereo_on_card_matches_cpu():
         assert torch.equal(mask, out["cuda"][1] > 0) and int(mask.sum()) > 0.5 * int(lf.valid.sum())
         torch.testing.assert_close(out["cuda"][1][mask], out["cpu"][1][mask], rtol=1e-3, atol=0)
         torch.testing.assert_close(out["cuda"][0][mask], out["cpu"][0][mask], rtol=1e-3, atol=0)
+
+
+@pytest.mark.cuda
+def test_cli_runs_on_card_by_default(tmp_path):
+    """`run.main` with no --device tracks a KITTI-format sequence on the
+    card, one FAST launch a frame; powermon sees the bytes on the card."""
+    from orb_slam_cuda_tpu_torch import run
+    from orb_slam_cuda_tpu_torch.io import png
+    from orb_slam_cuda_tpu_torch.utils import powermon
+
+    _need_card()
+    poses, images = _orbit()
+    n = 12
+    seq = tmp_path / "seq"
+    (seq / "image_0").mkdir(parents=True)
+    for i in range(n):
+        png.write(str(seq / "image_0" / f"{i:06d}.png"), images[i].numpy())
+    (seq / "times.txt").write_text("".join(f"{i * 0.1:.6f}\n" for i in range(n)))
+    settings = tmp_path / "settings.yaml"
+    settings.write_text("%YAML:1.0\n" + "".join(f"Camera.{k}: {v}\n" for k, v in CAM.items())
+                        + "ORBextractor.nFeatures: 600\nCamera.fps: 10.0\nSLAM.max_keyframes: 64\n"
+                        "SLAM.max_points: 8192\nSLAM.enable_loop_closing: 0\n")
+    pm = powermon.Powermon(period_s=0.05)
+    pm.prepare()
+    pm.start_async()
+    fast_kernel.launches = 0
+    try:
+        rc = run.main(["--dataset", "kitti", "--sensor", "mono", "--sequence", str(seq), "--settings",
+                       str(settings), "--save-tum", str(tmp_path / "traj.txt")])
+    finally:
+        pm.stop_async()
+    assert rc == 0 and fast_kernel.launches == n
+    rows = np.loadtxt(tmp_path / "traj.txt", ndmin=2)
+    assert len(rows) >= n - 4 and np.isfinite(rows).all()
+    assert max(s.device_bytes_in_use for s in pm.samples) > 0  # sampled while the run held its map

@@ -1,7 +1,8 @@
 """Parity of the port's geometry (se3, camera, triangulate) with the JAX
 package, rtol 1e-5 on float32 outputs; plus the import boundary: the port
-never imports jax, the reference package, OpenCV or PyYAML (absent on the card's
-machine), and names no path into the reference package."""
+never imports jax, the reference package, OpenCV, PyYAML, matplotlib, PIL
+or imageio (absent on the card's machine), and names no path into the
+reference package."""
 
 import ast
 import os
@@ -22,7 +23,7 @@ from torch_parity import assert_same, jx, random_poses, run_both, tt
 torch.set_num_threads(2)
 
 RTOL, ATOL = 1e-5, 1e-6
-FORBIDDEN = ("jax", "jaxlib", "orb_slam_cuda_tpu", "cv2", "yaml")
+FORBIDDEN = ("jax", "jaxlib", "orb_slam_cuda_tpu", "cv2", "yaml", "matplotlib", "PIL", "imageio")
 
 
 @pytest.fixture(scope="module")

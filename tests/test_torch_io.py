@@ -5,7 +5,12 @@ distortion, comments, a quoted string and SLAM.* overrides. Trajectory
 files: byte-equal. Checkpoints, both ways: a map saved by the reference
 System loads into the port with every array equal (bits for packed words),
 covisibility recomputed equal, and a map saved by the port loads into the
-reference System with every array equal."""
+reference System with every array equal. Dataset readers: on the same
+cv2-written directories (KITTI mono and stereo, TUM RGB-D with an
+association file and monocular from rgb.txt, with RGB frames and 16-bit
+depth, EuRoC mono and stereo) the port's readers give the reference's
+lengths, timestamps, frame keys, dtypes and arrays, exactly. BAL files:
+a file written by either package loads into the other within 1e-6."""
 
 import dataclasses
 import os
@@ -265,3 +270,139 @@ def test_load_map_refuses_other_format_version(reference_run, tmp_path):
     np.savez_compressed(path, **data)
     with pytest.raises(ValueError, match="checkpoint format 2"):
         tckpt.load_map(path)
+
+
+def _cv2():
+    import cv2
+
+    return cv2
+
+
+@pytest.fixture(scope="module")
+def dataset_dirs(tmp_path_factory):
+    """One small directory per format, written with cv2: gray KITTI and
+    EuRoC frames, RGB TUM frames with 16-bit depth."""
+    cv2 = _cv2()
+    root = tmp_path_factory.mktemp("datasets")
+    rng = np.random.default_rng(4)
+
+    def gray():
+        return cv2.GaussianBlur(rng.integers(0, 256, (24, 36), dtype=np.uint8), (3, 3), 0)
+
+    kitti = root / "kitti"
+    for cam in ("image_0", "image_1"):
+        (kitti / cam).mkdir(parents=True)
+    (kitti / "times.txt").write_text("0.000000e+00\n1.036000e-01\n2.073000e-01\n")
+    for i in range(3):
+        for cam in ("image_0", "image_1"):
+            cv2.imwrite(str(kitti / cam / f"{i:06d}.png"), gray())
+    tum = root / "tum"
+    (tum / "rgb").mkdir(parents=True)
+    (tum / "depth").mkdir()
+    rgb_lines, assoc = ["# color images", "# timestamp filename"], []
+    for i, t in enumerate(("1305031102.175304", "1305031102.211214", "1305031102.243211")):
+        cv2.imwrite(str(tum / "rgb" / f"{t}.png"), rng.integers(0, 256, (24, 36, 3), dtype=np.uint8))
+        cv2.imwrite(str(tum / "depth" / f"{t}.png"), rng.integers(0, 65536, (24, 36), dtype=np.uint16))
+        rgb_lines.append(f"{t} rgb/{t}.png")
+        assoc.append(f"{t} rgb/{t}.png {t} depth/{t}.png")
+    (tum / "rgb.txt").write_text("\n".join(rgb_lines) + "\n")
+    (tum / "assoc.txt").write_text("\n".join(["# assoc"] + assoc) + "\n\n")
+    euroc = root / "euroc"
+    stamps = ["1403636579763555584", "1403636579813555456"]
+    for cam in ("cam0", "cam1"):
+        (euroc / cam / "data").mkdir(parents=True)
+        for s in stamps:
+            cv2.imwrite(str(euroc / cam / "data" / f"{s}.png"), gray())
+    (root / "euroc_stamps.txt").write_text("\n".join(stamps) + "\n")
+    return root
+
+
+def _readers(mod, root):
+    return {
+        "kitti_mono": mod.KittiOdometryDataset(str(root / "kitti")),
+        "kitti_stereo": mod.KittiOdometryDataset(str(root / "kitti"), stereo=True),
+        "tum_rgbd": mod.TumRgbdDataset(str(root / "tum"), association_file=str(root / "tum" / "assoc.txt")),
+        "tum_assoc_mono": mod.TumRgbdDataset(str(root / "tum"), association_file=str(root / "tum" / "assoc.txt"),
+                                             monocular=True),
+        "tum_rgb_txt": mod.TumRgbdDataset(str(root / "tum")),
+        "euroc_mono": mod.EurocDataset(str(root / "euroc"), str(root / "euroc_stamps.txt")),
+        "euroc_stereo": mod.EurocDataset(str(root / "euroc"), str(root / "euroc_stamps.txt"), stereo=True),
+    }
+
+
+@pytest.mark.parametrize("name", ["kitti_mono", "kitti_stereo", "tum_rgbd", "tum_assoc_mono", "tum_rgb_txt",
+                                  "euroc_mono", "euroc_stereo"])
+def test_dataset_readers_equal_reference(dataset_dirs, name):
+    from orb_slam_cuda_tpu import io as jio
+    from orb_slam_cuda_tpu_torch import io as tio
+
+    jds, tds = _readers(jio, dataset_dirs)[name], _readers(tio, dataset_dirs)[name]
+    assert len(jds) == len(tds) > 0
+    jframes, tframes = list(jds), list(tds)
+    assert len(jframes) == len(tframes) == len(tds)
+    for (jt, jf), (tt_, tf) in zip(jframes, tframes):
+        assert jt == tt_ and sorted(jf) == sorted(tf)
+        for key in jf:
+            assert tf[key].dtype == jf[key].dtype and isinstance(tf[key], np.ndarray), key
+            np.testing.assert_array_equal(tf[key], jf[key], err_msg=key)
+    if name == "tum_rgbd":
+        assert jframes[0][1]["depth"].dtype == np.uint16 and jframes[0][1]["image"].ndim == 2
+
+
+def test_dataset_reader_missing_frame_raises(dataset_dirs, tmp_path):
+    from orb_slam_cuda_tpu_torch.io import KittiOdometryDataset
+
+    seq = tmp_path / "seq"
+    (seq / "image_0").mkdir(parents=True)
+    (seq / "times.txt").write_text("0.0\n")
+    with pytest.raises(FileNotFoundError):
+        list(KittiOdometryDataset(str(seq)))
+
+
+def _ba_problem(rng, n_cam=4, n_pt=30, n_obs=90):
+    poses = random_poses(rng, n_cam)
+    xyz = rng.normal(0, 2.0, (n_pt, 3)).astype(np.float32)
+    pt_valid = np.ones(n_pt, bool)
+    pt_valid[-2:] = False
+    obs_valid = np.ones(n_obs, bool)
+    obs_valid[::7] = False
+    return dict(cam_pose=poses, cam_fixed=np.arange(n_cam) == 0, xyz=xyz, pt_valid=pt_valid,
+                obs_cam=rng.integers(0, n_cam, n_obs).astype(np.int32),
+                obs_pt=rng.integers(0, n_pt, n_obs).astype(np.int32),
+                obs_uv=rng.uniform(0, 640, (n_obs, 2)).astype(np.float32),
+                obs_ur=np.full(n_obs, -1.0, np.float32), obs_inv_sigma2=np.ones(n_obs, np.float32),
+                obs_valid=obs_valid)
+
+
+def _assert_problems_close(a, b):
+    for f in a._fields:
+        x, y = to_np(getattr(a, f)), to_np(getattr(b, f))
+        if x.dtype.kind == "f":
+            np.testing.assert_allclose(x, y, rtol=0, atol=1e-6, err_msg=f)
+        else:
+            np.testing.assert_array_equal(x, y, err_msg=f)
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_bal_files_cross_between_packages(tmp_path, writer):
+    import jax.numpy as jnp
+
+    from orb_slam_cuda_tpu.io import bal as jbal
+    from orb_slam_cuda_tpu.solvers import bundle_adjust as jba
+    from orb_slam_cuda_tpu_torch.io import bal as tbal
+    from orb_slam_cuda_tpu_torch.solvers import bundle_adjust as tba
+
+    arrays = _ba_problem(np.random.default_rng(6))
+    path = str(tmp_path / "problem.bal")
+    if writer == "jax":
+        jbal.save_bal(jba.BAProblem(**{k: jnp.asarray(v) for k, v in arrays.items()}), path, 718.856)
+    else:
+        tbal.save_bal(tba.BAProblem(**{k: torch.as_tensor(v) for k, v in arrays.items()}), path, 718.856)
+    (jp, jf), (tp, tf) = jbal.load_bal(path), tbal.load_bal(path)
+    assert jf == tf == pytest.approx(718.856)
+    _assert_problems_close(jp, tp)
+    np.testing.assert_allclose(to_np(tp.cam_pose), arrays["cam_pose"], atol=1e-5)
+    assert int(tp.obs_valid.sum()) == int(arrays["obs_valid"].sum())
+    other = str(tmp_path / "again.bal")
+    (tbal.save_bal if writer == "jax" else jbal.save_bal)(tp if writer == "jax" else jp, other, tf)
+    _assert_problems_close(tbal.load_bal(other)[0], jbal.load_bal(other)[0])
