@@ -21,12 +21,21 @@ Phases, each printing its own lines:
      (reused if there) and loaded by load_orbvoc_text through the native
      scanner that the port compiles itself, then moved to the card;
      prints the seconds of each step and the bytes on the card;
-  5. orbit path: System.track_monocular over the first 80 frames of the
-     108-frame synthetic KITTI-resolution orbit (2000 features, no loop closing) on that
-     vocabulary, gated on tracked ratio, keyframes, tracking failures,
-     kernel launches, device residency and sim(3)-aligned ATE; prints fps,
-     p50/p99 frame time and stage means, and `build_frame`'s mean beside
-     that of a 20-frame run on the 512-word synthetic vocabulary;
+  5. orbit path, bench.py's configuration: System.track_monocular over
+     all 108 frames of the synthetic KITTI-resolution orbit (2000
+     features, loop closing on, pipeline_lag 3: each frame is one
+     fused_pipeline_step queued on the card, its result read up to 3
+     frames later), the frames handed over as host arrays as a camera
+     gives them, on that vocabulary; gated on tracked ratio, keyframes,
+     tracking failures, one kernel launch a frame, device residency, a
+     finite last pose and sim(3)-aligned ATE; prints fps, p50/p99 frame
+     time over bench.py's window (frames 48-107) and stage means, and
+     `build_frame`'s time on that vocabulary beside the 512-word synthetic
+     one. Then one more pipelined step, after that warm-up, runs under
+     torch.cuda.set_sync_debug_mode("error"): it must not synchronize;
+  5b. repeatability: a local BA on the orbit's final map and an
+     essential-graph solve on a 256-keyframe ring with a drifted loop
+     edge, each run twice on the same inputs on the card: torch.equal;
   6. loop path: the 340-frame KITTI-scale circuit (KITTI00-02 camera,
      2000 features, 1.3 laps of radius 22 m in a 12-wall room with 40
      billboards), rendered on the card, with 3 blank frames at frame 100;
@@ -56,7 +65,7 @@ Phases, each printing its own lines:
      candidate that a relocalization refused before the first pose is
      printed with the rung that refused it;
   9. CLI path: the port's command-line runner, `run.main(argv)` in this
-     process, on the first 120 of the 460 frames of config_mono_tum
+     process, on the first 90 of the 460 frames of config_mono_tum
      (640x480, the TUM1.yaml lens k1 0.262, k2 -0.953, k3 1.163, 1000
      features, 30 fps), generated with the port's tools/accuracy_eval.py
      and PNG writer into a temporary directory and read back through the
@@ -69,11 +78,11 @@ Phases, each printing its own lines:
      fps, p50/p99 and stage means from the timing CSVs and the PNG decode
      time a frame.
 Every path builds `System(cfg)` with no device argument: the card is the
-default. Two runs of one code do not give the same poses on the card
-(float scatter-adds sum in no fixed order there, and the keyframe and
-relocalization decisions amplify the last bit; tools/rgbd_repeat.py in
-the package shows where runs part), so keyframes, loops and lost frames
-differ from run to run, and every gate is on this one run. The line before the last is the kernel table as JSON: the kernel
+default. The float segment sums of the solvers and the map statistics
+add in a fixed order (ops/segsum.py), so a run on one card repeats bit
+for bit (tools/rgbd_repeat.py in the package checks it on the RGB-D
+frames); a run on another card or host can still part from it, and every
+gate is on this one run. The line before the last is the kernel table as JSON: the kernel
 of the main path with its launches summed over all paths (one per
 extracted image). The line before that holds the same numbers for
 fast_score_pair, the entry point the paths do not call. The last line is
@@ -95,15 +104,17 @@ WIDTH, HEIGHT = 1241, 376
 # The script must end inside 20 minutes, the frame time is bound by the
 # host, and the same code takes 1.4 times as long on one H100 machine as on
 # another: with 80 orbit, 340 loop-path and 240 RGB-D frames it took 844 s
-# on one and 1,154 s on another (PERF.md has the runs). So three paths are
-# cut: the orbit to the first 80 of the bench orbit's 108 frames, the
-# stereo path to the first STEREO_FRAMES of the circuit (its first loop
-# closed between frames 262 and 283 in five runs of five), the RGB-D path
-# to the first RGBD_RUN of its config's 400 frames. The loop path stays
-# whole: cut to 300 frames its ATE missed the gate in the one run tried.
+# on one and 1,154 s on another (PERF.md has the runs). So two paths are
+# cut: the stereo path to the first STEREO_FRAMES of the circuit (its first
+# loop closed between frames 262 and 283 in five runs of five), the RGB-D
+# path to the first RGBD_RUN of its config's 400 frames. The loop path
+# stays whole: cut to 300 frames its ATE missed the gate in the one run
+# tried. The orbit is bench.py's whole run (bench.py:49-118).
 ORBIT_FRAMES = 108
-N_FRAMES = 80
-MEASURE_FROM = 40
+MEASURE_FROM = 48  # bench.py's warm-up; frames 48-107 are its measured window
+PIPELINE_LAG = 3  # bench.py's default (BENCH_LAG)
+BUILD_FRAME_FRAMES = 20  # frames over which build_frame is timed on each vocabulary
+RING_KEYFRAMES = 256  # the essential graph of the repeatability phase
 TH_HI, TH_LO = 20.0, 7.0
 CELL, BORDER = 32, 19
 # Published peaks of one H100 SXM: device memory and float32 outside the
@@ -145,12 +156,13 @@ RGBD_DT = 1.0 / 30.0
 DEPTH_FACTOR = 5000.0  # TUM's: a stored depth of 5000 is 1 m
 PROBE_FRAMES = 30
 VOCAB_K, VOCAB_DEPTH = 10, 6
-SHORT_RUN_FRAMES = 20
 # The CLI path: the first CLI_FRAMES of config_mono_tum's 460 frames, then
 # a localization-only probe on frames CLI_PROBE_FROM.. of them, inside the
 # stretch the map covers (the JAX reference's CLI run of the config first
 # tracks at about frame 31: eval/mono_tum.json, gaps [[0.0, 1.03]]).
-CLI_FRAMES = 120
+# Cut from 120 when the orbit became bench.py's 108 pipelined frames, to
+# keep the script inside its limit on the slower hosts.
+CLI_FRAMES = 90
 CLI_FIRST_POSE_BY = 60
 CLI_PROBE_FROM, CLI_PROBE_FRAMES = 60, 20
 MONO_TUM_EXTENT = 5.09  # the whole config's ground-truth extent, m (eval/mono_tum.json)
@@ -272,10 +284,10 @@ def make_fixture(device="cpu"):
     cam = kitti_camera()
     scene = synthetic.PlanarScene.default(rng, depth=12.0, second_depth=25.0,
                                           extent=40.0, tex_size=2048)
-    poses = synthetic.orbit_trajectory(ORBIT_FRAMES, radius=1.5, depth_amp=0.3)[:N_FRAMES]
+    poses = synthetic.orbit_trajectory(ORBIT_FRAMES, radius=1.5, depth_amp=0.3)
     t0 = time.perf_counter()
     frames = [scene.render(cam.K, T, WIDTH, HEIGHT, device=device) for T in poses]
-    log(f"fixture: {N_FRAMES} frames {WIDTH}x{HEIGHT} rendered in {time.perf_counter() - t0:.1f} s")
+    log(f"fixture: {ORBIT_FRAMES} frames {WIDTH}x{HEIGHT} rendered in {time.perf_counter() - t0:.1f} s")
     return cam, poses, frames
 
 
@@ -479,79 +491,127 @@ def phase_vocabulary(device="cuda", depth_l=VOCAB_DEPTH):
     return voc
 
 
-def phase_main_path(cam, poses, frames, device=None, vocab=None):
-    """Track the fixture and check every gate. With no `device` the System
-    is built without one and must land on the card. On a CPU device (the
-    tests' rehearsal) the FAST wrapper takes its plain version, so the
-    kernel count must stay 0. `vocab` is the vocabulary to track on; with
-    none the System trains its 512-word synthetic one."""
-    import numpy as np
+def orbit_config(cam):
+    """bench.py's SystemConfig (bench.py:99-110) without its TPU switch."""
+    from orb_slam_cuda_tpu_torch.engine import Sensor, SystemConfig
 
-    from orb_slam_cuda_tpu_torch.engine import Sensor, System, SystemConfig
+    return SystemConfig(
+        camera=cam, sensor=Sensor.MONOCULAR, n_features=2000, max_keyframes=128,
+        max_points=16384, enable_loop_closing=True, max_frames_between_kf=10,
+        min_frames_between_kf=4, pipeline_lag=PIPELINE_LAG,
+    )
+
+
+def build_frame_ms(extractor, cam, vocab, frames) -> float:
+    """Mean host time of `build_frame` (synchronized) over `frames`."""
+    import torch
+
+    from orb_slam_cuda_tpu_torch.engine.frame import build_frame
+
+    feats = [extractor(img) for img in frames]
+    build_frame(feats[0], cam, vocab)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for f in feats:
+        build_frame(f, cam, vocab)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / len(feats)
+
+
+def check_step_syncs_nothing(slam, image):
+    """Queue one more pipelined step (its image a host array, as on the
+    main path) under torch.cuda.set_sync_debug_mode("error"), which raises
+    at any op that waits for the card. The System's state is not changed."""
+    import torch
+
+    if slam._carry is None:
+        slam._carry = slam._make_carry()
+    min_obs = 3 if len(slam.kf_order) > 2 else 2
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, res, _, host, copied = slam._dispatch_pipelined(image, min_obs)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    copied.synchronize()
+    if not bool(torch.isfinite(host).all()):
+        raise AssertionError(f"pipelined step under sync debug mode gave {host.tolist()}")
+    log(f"one pipelined step ran under set_sync_debug_mode('error') without a sync; "
+        f"its host vector: ok {int(host[0])}, inliers {int(host[1])}")
+
+
+def phase_main_path(cam, poses, frames, device=None, vocab=None):
+    """Track the fixture at bench.py's configuration and check every gate.
+    With no `device` the System is built without one and must land on the
+    card. On a CPU device (the tests' rehearsal) the FAST wrapper takes its
+    plain version, so the kernel count must stay 0. `vocab` is the
+    vocabulary to track on; with none the System trains its 512-word
+    synthetic one. Returns (launches, the System)."""
+    import numpy as np
+    import torch
+
+    from orb_slam_cuda_tpu_torch.engine import System
     from orb_slam_cuda_tpu_torch.ops import fast_kernel
     from orb_slam_cuda_tpu_torch.utils.evaluation import ate_rmse, camera_centers
 
-    cfg = SystemConfig(
-        camera=cam, sensor=Sensor.MONOCULAR, n_features=2000, max_keyframes=128,
-        max_points=16384, enable_loop_closing=False, max_frames_between_kf=10,
-        min_frames_between_kf=4,
-    )
-    if vocab is not None and device is None:
-        # The same frames on the synthetic vocabulary first, for the cost of
-        # the large one in `build_frame`.
-        short = System(cfg)
-        for i, img in enumerate(frames[:SHORT_RUN_FRAMES]):
-            short.track_monocular(img, i * 0.1)
-        small_words = short.vocab.n_words
-        small_ms = stage_mean_ms(short.timer.rows["times.csv"], "build_frame")
-        del short
+    cfg = orbit_config(cam)
     slam = System(cfg, vocab=vocab) if device is None else System(cfg, vocab=vocab, device=device)
     on_gpu = slam.device.type == "cuda"
     if device is None and not on_gpu:
         raise AssertionError(f"System(cfg) landed on {slam.device}, not on the card")
+    # As a camera hands them over: host arrays, uploaded by the System.
+    host_frames = [f.cpu().numpy() if torch.is_tensor(f) else np.asarray(f) for f in frames]
+    if vocab is not None and on_gpu:
+        from orb_slam_cuda_tpu_torch.engine.system import synthetic_vocabulary
+
+        small = synthetic_vocabulary(cfg.vocab_words).to(slam.device)
+        some = host_frames[:BUILD_FRAME_FRAMES]
+        log(f"build_frame over {len(some)} frames: {build_frame_ms(slam.extractor, cam, vocab, some):.2f} ms "
+            f"on the {vocab.n_words}-word vocabulary, {build_frame_ms(slam.extractor, cam, small, some):.2f} ms "
+            f"on the {small.n_words}-word synthetic one")
     frame_ms = []
     fast_kernel.launches = 0  # count this path's launches only
     t_all = time.perf_counter()
-    for i, img in enumerate(frames):
+    for i, img in enumerate(host_frames):
         t0 = time.perf_counter()
         slam.track_monocular(img, i * 0.1)
         frame_ms.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    status = slam.get_status()  # retires the frames still in flight
+    _synchronize(slam.device)
+    flush_ms = (time.perf_counter() - t0) * 1e3
     total_s = time.perf_counter() - t_all
     launches = fast_kernel.launches
-    if vocab is not None and device is None:
-        first = [r for r in slam.timer.rows["times.csv"] if r[0] < SHORT_RUN_FRAMES]
-        log(f"build_frame mean over frames 0-{SHORT_RUN_FRAMES - 1}: {stage_mean_ms(first, 'build_frame'):.2f} ms "
-            f"on the {slam.vocab.n_words}-word vocabulary, {small_ms:.2f} ms on the {small_words}-word "
-            f"synthetic one (a separate run of the same frames)")
 
     ts, est = camera_centers(slam.get_trajectory())
     gt_by_t = {round(i * 0.1, 6): np.linalg.inv(T)[:3, 3] for i, T in enumerate(poses)}
     gt = np.asarray([gt_by_t[round(t, 6)] for t in ts])
     ate = ate_rmse(est, gt) if len(est) >= 3 else float("inf")
     window = np.asarray(frame_ms[MEASURE_FROM:])
-    fps = len(window) / (window.sum() / 1e3)
+    fps = len(window) / ((window.sum() + flush_ms) / 1e3)
     p50, p99 = np.percentile(window, [50, 99])
     st = slam.state
     off_device = [f for f in st._fields if getattr(st, f).device.type != slam.device.type]
-    log(f"main path: {N_FRAMES} frames in {total_s:.1f} s; tracked_ratio {slam.tracked_ratio():.4f}, "
-        f"keyframes {slam.stats.n_keyframes} (live {len(slam.kf_order)}), "
-        f"points {int(st.mp_valid.sum())}, lost {slam.stats.n_lost}, relocalized {slam.stats.n_reloc}, "
-        f"ATE {ate:.4f} m, fast launches {launches}")
-    log(f"frames {MEASURE_FROM}-{N_FRAMES - 1}: {fps:.2f} fps, p50 {p50:.2f} ms, p99 {p99:.2f} ms, "
-        f"max {window.max():.2f} ms")
+    n = len(frame_ms)
+    log(f"main path (pipeline_lag {cfg.pipeline_lag}, loop closing on): {n} frames in {total_s:.1f} s; "
+        f"{status}; tracked_ratio {slam.tracked_ratio():.4f}, keyframes {slam.stats.n_keyframes} "
+        f"(live {len(slam.kf_order)}), points {int(st.mp_valid.sum())}, lost {slam.stats.n_lost}, "
+        f"relocalized {slam.stats.n_reloc}, ATE {ate:.4f} m, fast launches {launches}")
+    log(f"frames {MEASURE_FROM}-{n - 1}: {fps:.2f} fps (the final flush of {flush_ms:.2f} ms included), "
+        f"p50 {p50:.2f} ms, p99 {p99:.2f} ms, max {window.max():.2f} ms")
     for csv in ("times.csv", "timesTracking.csv"):
-        log(f"stage means {csv}, frames {MEASURE_FROM}-{N_FRAMES - 1}: "
+        log(f"stage means {csv}, frames {MEASURE_FROM}-{n - 1}: "
             + stage_means(slam.timer.rows[csv], MEASURE_FROM))
     # Keyframe work is rare and may fall before the window: time it over
     # the whole run, and list each call with its frame.
     mapping = slam.timer.rows["timesMapping.csv"]
-    log(f"stage means timesMapping.csv, frames 0-{N_FRAMES - 1}: " + stage_means(mapping, 0))
+    log(f"stage means timesMapping.csv, frames 0-{n - 1}: " + stage_means(mapping, 0))
     for frame, name, _, ns in mapping:
         log(f"mapping stage {name} at frame {frame}: {ns / 1e6:.2f} ms "
-            f"(that frame took {frame_ms[frame]:.2f} ms)")
+            f"(that frame took {frame_ms[frame] if frame < n else float('nan'):.2f} ms)")
     pose = slam.last_pose
-    want_launches = N_FRAMES if on_gpu else 0  # one launch a frame
-    checks = {
+    want_launches = n if on_gpu else 0  # one launch a frame
+    check_gates("main path", {
         "tracked_ratio >= 0.85": slam.tracked_ratio() >= 0.85,
         f"keyframes >= {MIN_KEYFRAMES}": slam.stats.n_keyframes >= MIN_KEYFRAMES,
         "tracking never failed (lost 0, relocalized 0)": slam.stats.n_lost == 0 and slam.stats.n_reloc == 0,
@@ -559,12 +619,77 @@ def phase_main_path(cam, poses, frames, device=None, vocab=None):
         f"map tensors on {slam.device} (off: {off_device})": not off_device,
         f"ATE <= {ATE_GATE}": ate <= ATE_GATE,
         "last pose finite": pose is not None and bool(np.isfinite(pose).all()),
-    }
-    failed = [k for k, ok in checks.items() if not ok]
-    if failed:
-        raise AssertionError("main path gates failed: " + "; ".join(failed))
-    log("main path: all gates passed")
-    return launches
+    })
+    if on_gpu:  # after the launches are read: this step is not the path's
+        check_step_syncs_nothing(slam, host_frames[-1])
+    return launches, slam
+
+
+def ring_pose_graph(n: int, device):
+    """An essential graph of `n` keyframes on a circle: the chain, edges
+    to the second and third neighbours, and a loop edge from the last to
+    the first whose measurement carries a 5% scale and 0.05 rad drift."""
+    import math
+
+    import torch
+
+    from orb_slam_cuda_tpu_torch.geometry import se3
+    from orb_slam_cuda_tpu_torch.solvers import pose_graph
+
+    g = torch.Generator().manual_seed(11)
+    ang = torch.arange(n, dtype=torch.float64) * (2 * math.pi / n)
+    xi = torch.zeros((n, 6), dtype=torch.float64)
+    xi[:, 0], xi[:, 2], xi[:, 4] = 20 * torch.cos(ang), 20 * torch.sin(ang), ang
+    T = se3.exp(xi.float())
+    R, t, s = T[:, :3, :3], T[:, :3, 3], torch.ones(n)
+    ei = torch.cat([torch.arange(n - k) for k in (1, 2, 3)] + [torch.tensor([0])])
+    ej = torch.cat([torch.arange(k, n) for k in (1, 2, 3)] + [torch.tensor([n - 1])])
+    mR, mt, ms = pose_graph.relative_sim3((R[ei], t[ei], s[ei]), (R[ej], t[ej], s[ej]))
+    drift = se3.exp(torch.tensor([[0.3, 0.0, 0.2, 0.0, 0.05, 0.0]]))[0]
+    mR[-1], mt[-1], ms[-1] = drift[:3, :3] @ mR[-1], mt[-1] + drift[:3, 3], ms[-1] * 1.05
+    noise = torch.randn((n, 3), generator=g) * 0.05
+    fixed = torch.zeros(n, dtype=torch.bool)
+    fixed[0] = True
+    problem = pose_graph.PoseGraphProblem(
+        vert_R=R, vert_t=t + noise, vert_s=s, vert_fixed=fixed, edge_i=ei, edge_j=ej,
+        meas_R=mR, meas_t=mt, meas_s=ms, edge_valid=torch.ones(ei.shape, dtype=torch.bool))
+    return pose_graph.PoseGraphProblem(*(x.to(device) for x in problem))
+
+
+def phase_repeatability(slam):
+    """One local BA (the last keyframe's window of the orbit's final map,
+    round 2's iterations) and one essential-graph solve (a drifted ring of
+    RING_KEYFRAMES, 5 Gauss-Newton steps of the loop closer's 15), each run
+    twice on the same inputs on the card: the two results must be
+    torch.equal."""
+    import torch
+
+    from orb_slam_cuda_tpu_torch.engine.local_mapping import gather_local_ba_problem
+    from orb_slam_cuda_tpu_torch.solvers import bundle_adjust as ba
+    from orb_slam_cuda_tpu_torch.solvers import pose_graph
+
+    m = slam.mapper
+    problem, _, _ = gather_local_ba_problem(slam.state, slam.kf_order[-1], slam.cam, m.level_inv_sigma2,
+                                            n_local=m.lba_local, n_fixed=m.lba_fixed, n_points=m.lba_points)
+    graph = ring_pose_graph(RING_KEYFRAMES, slam.device)
+    runs = {}
+    for name, solve in (("local BA", lambda: ba.bundle_adjust(problem, slam.cam, lm_iters=10, cg_iters=15)),
+                        ("essential graph", lambda: pose_graph.optimize_pose_graph(graph, gn_iters=5,
+                                                                                   cg_iters=30))):
+        t0 = time.perf_counter()
+        a = solve()
+        _synchronize(slam.device)
+        t1 = time.perf_counter()
+        b = solve()
+        _synchronize(slam.device)
+        same = all(torch.equal(x, y) for x, y in zip(a, b))
+        runs[name] = same
+        log(f"repeatability, {name}: two solves on the same inputs {'torch.equal' if same else 'DIFFER'}; "
+            f"{(t1 - t0) * 1e3:.2f} ms and {(time.perf_counter() - t1) * 1e3:.2f} ms")
+    log(f"repeatability: local BA of {int(problem.obs_valid.sum())} observations, "
+        f"{int(problem.pt_valid.sum())} points, {problem.cam_pose.shape[0]} cameras; essential graph of "
+        f"{RING_KEYFRAMES} keyframes and {graph.edge_i.shape[0]} edges")
+    check_gates("repeatability", {f"{k} repeats bit for bit": v for k, v in runs.items()})
 
 
 def circuit_scene():
@@ -1065,8 +1190,9 @@ def main() -> int:
     timed("kernels", check_against_cpu, frames[0])
     timed("kernels", phase_extract_launches, frames[0])
     vocab = timed("vocabulary", phase_vocabulary)
-    launches = timed("orbit path", phase_main_path, cam, poses, frames, vocab=vocab)
-    del frames, vocab
+    launches, orbit_slam = timed("orbit path", phase_main_path, cam, poses, frames, vocab=vocab)
+    timed("repeatability", phase_repeatability, orbit_slam)
+    del frames, vocab, orbit_slam
     stereo = timed("stereo fixture", make_stereo_fixture, "cuda")
     launches += timed("loop path", phase_loop_path,
                       *timed("loop fixture", make_loop_fixture, "cuda", [left for left, _ in stereo[2]]))

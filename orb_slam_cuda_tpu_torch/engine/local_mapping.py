@@ -19,6 +19,7 @@ from ..geometry import se3, triangulate
 from ..geometry.camera import Camera
 from ..matching import search
 from ..ops import hamming
+from ..ops.segsum import last_writes
 from ..slam_map import MapConfig, MapState, keyframe_db
 from ..slam_map import ops as map_ops
 from ..slam_map import state as mstate
@@ -241,7 +242,10 @@ def apply_fusion(state: MapState, kf_target, pt_candidates, match_idx) -> MapSta
 
     bind = ok & (q < 0)
     row_ext = torch.cat([row, row.new_full((1,), -1)])
-    row_ext[torch.where(bind, j, torch.full_like(j, N))] = p.to(row.dtype)
+    # Where two writes meet one slot, the later one stays, as a serial
+    # scatter leaves it (CUDA writes them in no fixed order).
+    jt = torch.where(bind, j, torch.full_like(j, N))
+    row_ext[torch.where(last_writes(jt, N + 1), jt, torch.full_like(jt, N))] = p.to(row.dtype)
     kf_mp = state.kf_mp.clone()
     kf_mp[kf_target] = row_ext[:N]
     state = state._replace(kf_mp=kf_mp)
@@ -252,8 +256,11 @@ def apply_fusion(state: MapState, kf_target, pt_candidates, match_idx) -> MapSta
     p_wins = obs[p] >= obs[qc]
     winner = torch.where(p_wins, p, qc)
     loser = torch.where(p_wins, qc, p)
+    # One point can lose twice (as one candidate's point and another's
+    # bound point): the later merge writes it.
+    tgt = torch.where(merge, loser, torch.full_like(loser, P))
     table = torch.arange(P + 1, dtype=torch.int64, device=dev)
-    table[torch.where(merge, loser, torch.full_like(loser, P))] = winner
+    table[torch.where(last_writes(tgt, P + 1), tgt, torch.full_like(tgt, P))] = winner
     table = table[:P]
     table = table[table]  # chase one level of chaining
     kf_mp = state.kf_mp

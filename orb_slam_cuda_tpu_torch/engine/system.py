@@ -4,14 +4,24 @@
 machine, local mapper and loop closer; every tensor it creates lives on
 `device`, the card unless the caller passes `device="cpu"` (with no card
 and no argument the constructor raises). Ported: `track_monocular`,
-`track_stereo` and `track_rgbd` with `pipeline_lag=0`, two-view and
-depth initialization, the fused tracking step, relocalization of lost
-frames, keyframe creation (with depth points for stereo/RGB-D), local
-mapping and loop closing with its chunked global BA (synchronous, or
-through the background queue's units when `async_mapping`),
-localization-only mode with its frame-to-frame visual odometry, map
-save/load and trajectory export. Not ported yet, and refused by the
-constructor: the pipelined lag, device meshes and cluster refinement.
+`track_stereo` and `track_rgbd`, two-view and depth initialization, the
+fused tracking step, pipelined monocular tracking (`pipeline_lag` > 0),
+relocalization of lost frames, keyframe creation (with depth points for
+stereo/RGB-D), local mapping and loop closing with its chunked global BA
+(synchronous, or through the background queue's units when
+`async_mapping`), localization-only mode with its frame-to-frame visual
+odometry, map save/load and trajectory export. Not ported yet, and
+refused by the constructor: device meshes and cluster refinement.
+
+Pipelined tracking (`pipeline_lag` = L > 0, monocular only, as in the
+reference): once tracking is OK each frame is queued on the device as one
+`tracking.fused_pipeline_step` that reads the previous frame's
+`TrackCarry` from the device, and its 41-float host vector is copied into
+pinned memory behind a CUDA event. The host runs the state machine's tail
+(trajectory, keyframe policy, loss) for a frame when its copy has landed
+(`_readback_ready`), when L frames are in flight, or at once while
+tracking is at risk; so keyframe decisions run up to L frames late.
+Stereo and RGB-D frames stay synchronous at any lag.
 """
 
 from __future__ import annotations
@@ -20,7 +30,7 @@ import enum
 import math
 from collections import deque
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -101,9 +111,19 @@ class TrackStats:
     n_vo_frames: int = 0  # localization-mode visual-odometry frames
 
 
+class _InFlight(NamedTuple):
+    """A pipelined frame whose host vector has not been read yet."""
+
+    frame_id: int
+    timestamp: float
+    frame: FrameData
+    res: tracking.FullStepResult
+    host_vec: torch.Tensor  # (41,) on the CPU (pinned when copied from CUDA)
+    copied: Optional[torch.cuda.Event]  # recorded after the copy; None on the CPU
+
+
 def _refuse(config: SystemConfig):
     unported = {
-        "pipeline_lag > 0": config.pipeline_lag > 0,
         "mesh": config.mesh is not None,
         "cluster_refine_interval > 0": config.cluster_refine_interval > 0,
     }
@@ -139,6 +159,7 @@ class System:
                 min_th_fast=config.min_th_fast,
             ),
             cam.height, cam.width, device=self.device,
+            upload_slots=max(2, config.pipeline_lag + 1),
         )
         self.map_cfg = MapConfig(
             max_keyframes=config.max_keyframes, max_features=config.n_features,
@@ -149,6 +170,14 @@ class System:
             vocab = synthetic_vocabulary(config.vocab_words, seed)
         self.vocab = vocab.to(self.device)
         self._bg = deque()  # deferred mapping units
+        # Pipelined tracking: frames in flight, the device-side carry, the
+        # first frame id dispatched after the last keyframe insertion (the
+        # frames before it tracked the pre-keyframe map), and the number
+        # of frames still to run drained after a keyframe or a weak frame.
+        self._pending: deque = deque()
+        self._carry: Optional[tracking.TrackCarry] = None
+        self._kf_barrier = 0
+        self._sync_window = 0
         self.state = mstate.empty(self.map_cfg, self.device)
         self.db = keyframe_db.empty(config.max_keyframes, config.n_features, self.device)
         mono = config.sensor == Sensor.MONOCULAR
@@ -160,6 +189,8 @@ class System:
             n_fuse_neighbors=40 if mono else 20, device=self.device,
         )
         self.scale_factors = tuple(self.map_cfg.scale_factors)
+        # On the device once, so the pipelined step copies nothing to it.
+        self._scale_factors_dev = torch.as_tensor(self.scale_factors, dtype=torch.float32, device=self.device)
 
         self.tracking_state = TrackingState.NO_IMAGES_YET
         self.velocity: Optional[np.ndarray] = None
@@ -203,16 +234,27 @@ class System:
     def _sync(self):
         return self.device if self.device.type == "cuda" else None
 
+    @property
+    def _radius_mm(self) -> float:
+        return (tracking.MOTION_MODEL_RADIUS_STEREO if self.cfg.sensor == Sensor.STEREO
+                else tracking.MOTION_MODEL_RADIUS)
+
     # ------------------------------------------------------------------
     def track_monocular(self, image, timestamp: float):
         """Track one grayscale frame (numpy array or tensor, on any
         device). Returns the 4x4 Tcw (np.ndarray) or None while
-        uninitialized/lost."""
+        uninitialized/lost; at `pipeline_lag` > 0, the pose of the last
+        frame retired by this call, or None if none was."""
         assert self.cfg.sensor == Sensor.MONOCULAR
         self.timer.set_frame(self.frame_id)
-        # As the reference's synchronous path does, the previous frames'
-        # deferred mapping and loop units finish before this frame tracks.
-        self._drain_background()
+        if self.cfg.pipeline_lag > 0 and self.tracking_state == TrackingState.OK:
+            # Host clock only: the stage must not wait for the device.
+            with self.timer.stage("timesTracking.csv", "track"):
+                return self._track_pipelined(image, timestamp)
+        # As the reference's synchronous path does, the frames in flight
+        # retire and the deferred mapping and loop units finish before
+        # this frame tracks.
+        self._flush_pipeline()
         with self.timer.stage("times.csv", "orb_extract", sync=self._sync()):
             feats = self.extractor(image)
         with self.timer.stage("times.csv", "build_frame", sync=self._sync()):
@@ -221,6 +263,147 @@ class System:
             pose = self._track(frame, timestamp)
         self.frame_id += 1
         return pose
+
+    # ------------------------------------------------------------------
+    # Pipelined tracking: queue the frame now, read its result L frames on.
+    def _make_carry(self) -> tracking.TrackCarry:
+        """The device-side carry from the host state after a synchronous
+        track."""
+        lf = self.last_frame
+        vel = self.velocity if self.velocity is not None else np.eye(4, dtype=np.float32)
+        f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=self.device)  # noqa: E731
+        return tracking.TrackCarry(
+            pose=f32(self.last_pose), vel=f32(vel), uv=lf.uv, oct=lf.oct, ang=lf.ang,
+            bip=lf.bip, depth=lf.depth, mp=lf.mp,
+            ref_kf=torch.full((), self.ref_kf, dtype=torch.int64, device=self.device),
+        )
+
+    def _dispatch_pipelined(self, image, min_obs: int):
+        """Queue one frame's fused step on the device and the copy of its
+        host vector. Returns (frame, result, carry, host vector, event)."""
+        frame, res, carry = tracking.fused_pipeline_step(
+            self.state, self.extractor.upload(image), self._carry, min_obs,
+            self.extractor._extract_impl, lambda feats: build_frame(feats, self.cam, self.vocab),
+            self.cam, self._scale_factors_dev, self._radius_mm, self.th_depth, self._vo_th_depth,
+        )
+        if self.device.type != "cuda":
+            return frame, res, carry, res.host_vec, None
+        host = torch.empty(res.host_vec.shape, dtype=res.host_vec.dtype, pin_memory=True)
+        host.copy_(res.host_vec, non_blocking=True)
+        copied = torch.cuda.Event()
+        copied.record()
+        return frame, res, carry, host, copied
+
+    def _readback_ready(self, entry: _InFlight) -> bool:
+        """Has the frame's host vector landed? (Always on the CPU.)"""
+        return entry.copied is None or entry.copied.query()
+
+    def _track_pipelined(self, image, timestamp: float):
+        """Queue one fused step; retire in-flight frames whose host vector
+        has landed, all of them while tracking is at risk, and the oldest
+        once more than `pipeline_lag` are in flight."""
+        if self._carry is None:
+            self._carry = self._make_carry()
+        min_obs = 3 if len(self.kf_order) > 2 else 2
+        frame, res, self._carry, host, copied = self._dispatch_pipelined(image, min_obs)
+        self.state = self.state._replace(mp_visible=res.mp_visible, mp_found=res.mp_found)
+        self._pending.append(_InFlight(self.frame_id, timestamp, frame, res, host, copied))
+        self.frame_id += 1
+        # One deferred mapping or loop unit rides each frame slot.
+        self._pump_background()
+        lag = self.cfg.pipeline_lag
+
+        def risky():
+            # A keyframe rescue that arrives L frames after the inliers
+            # collapse comes too late: drain while the window after a
+            # keyframe is open, while the weakness trigger is armed, or
+            # while inliers are within twice the loss floor. Pure-cadence
+            # mode (kf_ref_ratio > 1) never arms the weakness trigger.
+            th_ref = self.cfg.kf_ref_ratio
+            if th_ref is None:
+                th_ref = 0.9 if self.cfg.sensor == Sensor.MONOCULAR else 0.75
+            c2_armed = th_ref <= 1.0 and self.n_inliers_local < self.ref_tracked * th_ref
+            return (self._sync_window > 0 or c2_armed
+                    or self.n_inliers_local < 2 * tracking.MIN_INLIERS_LOCAL)
+
+        at_risk = risky()
+        if self._sync_window > 0:
+            self._sync_window -= 1
+        if at_risk:
+            # The rescue is the next keyframe's points: finish the mapping
+            # backlog too.
+            self._drain_background()
+        out = None
+        while self._pending:
+            if not at_risk and len(self._pending) <= lag and not self._readback_ready(self._pending[0]):
+                break
+            out = self._retire_one()
+            if self.tracking_state != TrackingState.OK:
+                break
+            at_risk = risky()
+        return out
+
+    def _retire_one(self):
+        """Read the oldest in-flight frame's host vector (waiting for its
+        copy) and run the state machine's tail for it: trajectory,
+        keyframe policy, loss."""
+        entry = self._pending.popleft()
+        if entry.copied is not None:
+            entry.copied.synchronize()
+        vec = entry.host_vec.numpy()
+        frame, res, fid, ts = entry.frame, entry.res, entry.frame_id, entry.timestamp
+        ok = bool(vec[0])
+        self.stats.n_frames += 1
+        self.ref_kf = int(vec[2])
+        self.n_inliers_local = int(vec[1])
+        self.ref_tracked = int(vec[3])
+        self.close_tracked = int(vec[7])
+        self.close_untracked = int(vec[8])
+        if ok:
+            pose = vec[9:25].reshape(4, 4).astype(np.float32).copy()
+            if self.last_pose is not None:
+                self.velocity = pose @ np.linalg.inv(self.last_pose)
+            self.last_pose = pose
+            self.last_frame = frame._replace(mp=res.mp)
+            self.stats.n_tracked += 1
+            self.frames_since_kf += 1
+            self._append_traj(ts, pose, True, self.ref_kf, vec[25:41].reshape(4, 4))
+            if not self.localization_only and fid >= self._kf_barrier and self._need_new_keyframe(frame):
+                self._create_keyframe(frame)
+                self.kf_timestamps[self.ref_kf] = ts
+                # The frames in flight tracked the pre-keyframe map: their
+                # inlier counts must not trigger another keyframe.
+                self._kf_barrier = self.frame_id
+                self._sync_window = self.cfg.pipeline_lag + 1
+            return pose
+        self._append_traj(ts, None, False)
+        self.stats.n_lost += 1
+        if fid < self._kf_barrier:
+            # Soft miss: the frame tracked the pre-keyframe map the policy
+            # had already judged exhausted. Skip it and keep the chain (the
+            # carry kept the last good pose with identity velocity).
+            self._sync_window = max(self._sync_window, 1)
+            return None
+        # The loss is found L frames late: the frames queued after it
+        # chained on the failed pose and are lost too. The next frame goes
+        # through the synchronous path and relocalizes.
+        while self._pending:
+            lost = self._pending.popleft()
+            self._append_traj(lost.timestamp, None, False)
+            self.stats.n_frames += 1
+            self.stats.n_lost += 1
+        self.tracking_state = TrackingState.LOST
+        self.velocity = None
+        self._carry = None
+        if 0 < len(self.kf_order) <= 5 and not self.localization_only:
+            self.reset()
+        return None
+
+    def _flush_pipeline(self):
+        """Retire every frame in flight, then finish the deferred units."""
+        while self._pending:
+            self._retire_one()
+        self._drain_background()
 
     def track_stereo(self, left, right, timestamp: float):
         """Track one rectified stereo pair: extract both views, associate
@@ -346,9 +529,7 @@ class System:
             res = tracking.full_track_step(
                 self.state, frame, pose_pred.astype(np.float32), self.last_pose.astype(np.float32),
                 lf.uv, lf.oct, lf.ang, lf.bip, lf.mp, lf.depth,
-                self.ref_kf, min_obs, self.cam, self.scale_factors,
-                tracking.MOTION_MODEL_RADIUS_STEREO if self.cfg.sensor == Sensor.STEREO
-                else tracking.MOTION_MODEL_RADIUS,
+                self.ref_kf, min_obs, self.cam, self.scale_factors, self._radius_mm,
                 self.th_depth, self._vo_th_depth,
             )
             vec = res.host_vec.cpu().numpy()
@@ -408,6 +589,8 @@ class System:
             timestamp, pose if ok else None, bool(ok),
             ref_slot_frame if ref_pose is not None else -1, ref_pose,
         )
+        # The next pipelined frame rebuilds its carry from this host state.
+        self._carry = None
         self._pump_background()
         return pose if ok else None
 
@@ -810,7 +993,7 @@ class System:
         """[(timestamp, Tcw or None, ok)], tracked frames recomposed against
         their reference keyframe's current pose (walking cull-repair
         chains to a live keyframe)."""
-        self._drain_background()
+        self._flush_pipeline()
         kf_pose = self.state.kf_pose.cpu().numpy().astype(np.float64)
         live = set(self.kf_order)
         out = []
@@ -845,7 +1028,7 @@ class System:
 
     def get_status(self) -> dict:
         """Health snapshot."""
-        self._drain_background()
+        self._flush_pipeline()
         return {
             "state": self.tracking_state.name,
             "frames": self.stats.n_frames,
@@ -859,11 +1042,14 @@ class System:
     def set_localization_mode(self, enabled: bool):
         """Localization-only switching: tracking and relocalization go on,
         mapping and loop closing stop."""
-        self._drain_background()
+        self._flush_pipeline()
         self.localization_only = enabled
 
     def reset(self):
         """Full reset: map, database, state machine."""
+        self._pending.clear()  # the frames in flight tracked the dying map
+        self._carry = None
+        self._kf_barrier = 0
         self._bg.clear()
         self.state = mstate.empty(self.map_cfg, self.device)
         self.db = keyframe_db.empty(self.cfg.max_keyframes, self.cfg.n_features, self.device)
@@ -902,7 +1088,7 @@ class System:
     def save_keyframe_trajectory_tum(self, path: str):
         from ..io import trajectory as traj_io
 
-        self._drain_background()
+        self._flush_pipeline()
         traj_io.save_keyframe_trajectory_tum(self.state, self.kf_order, self.kf_timestamps, path)
 
     def save_map(self, path: str):
@@ -910,12 +1096,14 @@ class System:
         one .npz (the reference's checkpoint format, key for key)."""
         from ..io import checkpoint
 
-        self._drain_background()
+        self._flush_pipeline()
         checkpoint.save_system(self, path)
 
     def load_map(self, path: str, localization_only: bool = True):
         """Load a checkpoint written by this package or by the reference;
-        the system starts LOST and relocalizes against the loaded map."""
+        the system starts LOST and relocalizes against the loaded map.
+        Frames in flight retire against the map they tracked first."""
         from ..io import checkpoint
 
+        self._flush_pipeline()
         checkpoint.load_into_system(self, path, localization_only)

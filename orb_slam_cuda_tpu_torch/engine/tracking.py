@@ -1,8 +1,17 @@
 """Tracking: motion model, reference-keyframe fallback, local-map tracking,
-the fused per-frame step and the localization-mode visual odometry (torch
-port of orb_slam_cuda_tpu/engine/tracking.py). The reference's `lax.cond`s
-are host `if`s on 0-d tensors here: each costs one sync. The pipelined step
-(`fused_pipeline_step`, `TrackCarry`) is not ported yet."""
+the fused per-frame step, the pipelined step and the localization-mode
+visual odometry (torch port of orb_slam_cuda_tpu/engine/tracking.py).
+
+The reference's per-frame step is one jitted program whose two
+`lax.cond`s (the widened motion-model retry and the reference-keyframe
+fallback) run only the branch they pick. The port has two forms of it:
+`full_track_step` takes those branches with host `if`s (each a read-back
+of a 0-d tensor), for the synchronous path; `full_track_step_sync_free`
+computes both sides of each and picks with `torch.where`, so the
+pipelined step (`fused_pipeline_step`, with its `TrackCarry`) queues a
+whole frame on the device without one host sync, at the price of the
+launches of the branches not taken. Both give the values the reference's
+`lax.cond` picks."""
 
 from __future__ import annotations
 
@@ -15,6 +24,7 @@ from ..geometry import se3
 from ..geometry.camera import Camera
 from ..matching import search
 from ..ops import hamming
+from ..ops.segsum import last_writes
 from ..slam_map import MapState
 from ..slam_map import ops as map_ops
 from ..solvers import pose_opt
@@ -28,6 +38,29 @@ MIN_MATCHES_REF_KF = 15
 MIN_INLIERS_LOCAL = 30
 
 
+class TrackCarry(NamedTuple):
+    """What frame n+1's pipelined step needs from frame n, all on the
+    device: the last tracked pose, the constant-velocity model (identity
+    when unknown), the last frame's features and bindings, and the
+    reference keyframe slot as a 0-d int64 tensor."""
+
+    pose: torch.Tensor  # (4,4) Tcw of the last tracked frame
+    vel: torch.Tensor  # (4,4)
+    uv: torch.Tensor  # (N,2)
+    oct: torch.Tensor
+    ang: torch.Tensor
+    bip: torch.Tensor
+    depth: torch.Tensor  # (N,) (<0 unknown; all <0 monocular)
+    mp: torch.Tensor  # (N,) bindings
+    ref_kf: torch.Tensor  # () int64
+
+
+def _slot(ref_kf, device):
+    """A keyframe slot (int or 0-d tensor) as a (1,) index: rows are then
+    gathered on the device, where `x[t]` with a 0-d tensor reads t back."""
+    return torch.as_tensor(ref_kf, device=device).reshape(1).long()
+
+
 def inv_level_sigma2(scale_factors, octave):
     """Per-observation information 1/sigma2[octave]."""
     sf = torch.as_tensor(scale_factors, dtype=torch.float32, device=octave.device)
@@ -38,14 +71,23 @@ def inv_level_sigma2(scale_factors, octave):
 def _bind(n, target_idx, values, ok, base=None):
     """(n,) int32 bindings: out[target_idx[q]] = values[q] where ok[q],
     else `base` (or -1). Unmatched rows write into a trash slot, so they
-    cannot clobber a real match to feature 0."""
+    cannot clobber a real match to feature 0. Two rows matched to one
+    target (equal distances can tie in the duplicate resolution): the
+    later row's value, as a serial scatter leaves it."""
     dev = target_idx.device
     out = torch.full((n + 1,), -1, dtype=torch.int32, device=dev)
     if base is not None:
         out[:n] = base
-    idx = torch.where(ok, target_idx.long(), torch.full_like(target_idx, n, dtype=torch.int64))
+    idx = _trash_unless(ok, target_idx, n)
     out[idx] = values.to(torch.int32)
     return out[:n]
+
+
+def _trash_unless(ok, target_idx, n):
+    """Scatter index: `target_idx` where `ok` and it is the last row to
+    write its target, else the trash slot n."""
+    idx = torch.where(ok, target_idx.long(), torch.full_like(target_idx, n, dtype=torch.int64))
+    return torch.where(last_writes(idx, n + 1), idx, torch.full_like(idx, n))
 
 
 def track_motion_model(state: MapState, frame: FrameData, pose_pred, last_uv,
@@ -79,9 +121,9 @@ def track_motion_model(state: MapState, frame: FrameData, pose_pred, last_uv,
     ok = m.idx >= 0
     mp_new = _bind(n, m.idx, last_mp, ok & is_map)
     temp_ok = ok & is_temp
-    tidx = torch.where(temp_ok, m.idx, torch.full_like(m.idx, n))
+    tidx = _trash_unless(temp_ok, m.idx, n)
     temp_bound = torch.zeros((n + 1,), dtype=torch.bool, device=Xw.device)
-    temp_bound[tidx] = True
+    temp_bound.index_fill_(0, tidx, True)
     temp_Xw = torch.zeros((n + 1, 3), dtype=torch.float32, device=Xw.device)
     temp_Xw[tidx] = Xw
     n_matches = torch.sum(ok)
@@ -96,11 +138,12 @@ def track_reference_kf(state: MapState, frame: FrameData, pose_init, ref_kf,
                        cam: Camera, scale_factors):
     """TrackReferenceKeyFrame: BoW-gated matching against the reference
     keyframe's points, then pose-only LM from the last pose."""
-    kf_bip = hamming.bipolar(state.kf_desc[ref_kf])
-    kf_mp = state.kf_mp[ref_kf]
+    ref = _slot(ref_kf, state.device)
+    kf_bip = hamming.bipolar(state.kf_desc[ref][0])
+    kf_mp = state.kf_mp[ref][0]
     kf_has_pt = (kf_mp >= 0) & state.mp_valid[torch.clamp(kf_mp, min=0).long()]
     m = search.by_bow(
-        state.kf_node[ref_kf], kf_bip, state.kf_feat_valid[ref_kf], state.kf_ang[ref_kf],
+        state.kf_node[ref][0], kf_bip, state.kf_feat_valid[ref][0], state.kf_ang[ref][0],
         frame.node, frame.bip, frame.valid, frame.ang,
         ratio=0.7, check_rotation=True, f1_has_point=kf_has_pt,
     )
@@ -159,11 +202,11 @@ def track_vo_last_frame(frame: FrameData, last_uv, last_oct, last_ang, last_bip,
     )
     ok = m.idx >= 0
     n = frame.capacity
-    tidx = torch.where(ok, m.idx.long(), torch.full_like(m.idx, n, dtype=torch.int64))
+    tidx = _trash_unless(ok, m.idx, n)
     Xw_f = torch.zeros((n + 1, 3), dtype=torch.float32, device=dev)
     Xw_f[tidx] = Xw
     bound = torch.zeros((n + 1,), dtype=torch.bool, device=dev)
-    bound[tidx] = True
+    bound.index_fill_(0, tidx, True)
     inv_sigma2 = inv_level_sigma2(scale_factors, frame.oct)
     res = pose_opt.optimize_pose(pose_pred, Xw_f[:n], frame.uv, frame.right, inv_sigma2,
                                  bound[:n] & frame.valid, cam)
@@ -241,31 +284,67 @@ class FullStepResult(NamedTuple):
     host_vec: torch.Tensor
 
 
+def _motion_ok(n_matches, n_inliers):
+    return (n_matches >= MIN_MATCHES_MOTION) & (n_inliers >= MIN_INLIERS_TRACK)
+
+
+def _pick(cond, a, b):
+    """Element-wise `a if cond else b` over tuples of tensors."""
+    return tuple(torch.where(cond, x, y) for x, y in zip(a, b))
+
+
 def full_track_step(state: MapState, frame: FrameData, pose_pred, pose_last,
                     last_uv, last_oct, last_ang, last_bip, last_mp, last_depth,
                     ref_kf, min_obs, cam: Camera, scale_factors, radius_mm,
                     th_depth: float = 0.0, vo_th_depth: float = 0.0) -> FullStepResult:
     """The per-frame tracking pipeline: motion model (with the doubled
     window retry), reference-KF fallback, local map, visibility stats and
-    the keyframe-policy counters."""
+    the keyframe-policy counters. The two branches are host `if`s."""
     dev = state.device
     pose_pred = torch.as_tensor(pose_pred, dtype=torch.float32, device=dev)
     pose_last = torch.as_tensor(pose_last, dtype=torch.float32, device=dev)
-    ref_kf = int(ref_kf)
+    ref_kf = torch.full((), int(ref_kf), dtype=torch.int64, device=dev)
     last_mp = map_ops.sanitize_bindings(state, last_mp)
 
     args = (state, frame, pose_pred, last_uv, last_oct, last_ang, last_bip,
             last_mp, last_depth, pose_last, cam, scale_factors)
-    pose1, mp1, n_m1, n_i1 = track_motion_model(*args, radius_mm, vo_th_depth)
-    if int(n_m1) < MIN_MATCHES_MOTION:
-        pose1, mp1, n_m1, n_i1 = track_motion_model(*args, 2.0 * radius_mm, vo_th_depth)
-    ok1 = bool((n_m1 >= MIN_MATCHES_MOTION) & (n_i1 >= MIN_INLIERS_TRACK))
+    r1 = track_motion_model(*args, radius_mm, vo_th_depth)
+    if int(r1[2]) < MIN_MATCHES_MOTION:
+        r1 = track_motion_model(*args, 2.0 * radius_mm, vo_th_depth)
+    ok1 = _motion_ok(r1[2], r1[3])
+    r2 = r1 if bool(ok1) else track_reference_kf(state, frame, pose_last, ref_kf, cam, scale_factors)
+    return _track_local_map_tail(state, frame, r1, ok1, r2, ref_kf, min_obs, cam, scale_factors, th_depth)
 
-    if ok1:
-        pose2, mp2, n_m2, n_i2 = pose1, mp1, n_m1, n_i1
-    else:
-        pose2, mp2, n_m2, n_i2 = track_reference_kf(state, frame, pose_last, ref_kf, cam, scale_factors)
-    ok2 = ok1 or bool((n_m2 >= MIN_MATCHES_REF_KF) & (n_i2 >= MIN_INLIERS_TRACK))
+
+def full_track_step_sync_free(state: MapState, frame: FrameData, pose_pred, pose_last,
+                              last_uv, last_oct, last_ang, last_bip, last_mp, last_depth,
+                              ref_kf, min_obs, cam: Camera, scale_factors, radius_mm,
+                              th_depth: float = 0.0, vo_th_depth: float = 0.0) -> FullStepResult:
+    """`full_track_step` without a host sync: the widened retry and the
+    reference-keyframe fallback always run, and `torch.where` picks what
+    the reference's `lax.cond`s pick. `pose_pred`, `pose_last` and `ref_kf`
+    (0-d) are tensors on the map's device, and so is `scale_factors` on a
+    CUDA device (a tuple there is copied to the card, which syncs)."""
+    # First: the carry is L frames stale, and a binding to a point slot
+    # culled (and maybe reused) since then must not alias another point.
+    last_mp = map_ops.sanitize_bindings(state, last_mp)
+    args = (state, frame, pose_pred, last_uv, last_oct, last_ang, last_bip,
+            last_mp, last_depth, pose_last, cam, scale_factors)
+    r1 = track_motion_model(*args, radius_mm, vo_th_depth)
+    r1_wide = track_motion_model(*args, 2.0 * radius_mm, vo_th_depth)
+    r1 = _pick(r1[2] < MIN_MATCHES_MOTION, r1_wide, r1)
+    ok1 = _motion_ok(r1[2], r1[3])
+    r2 = _pick(ok1, r1, track_reference_kf(state, frame, pose_last, ref_kf, cam, scale_factors))
+    return _track_local_map_tail(state, frame, r1, ok1, r2, ref_kf, min_obs, cam, scale_factors, th_depth)
+
+
+def _track_local_map_tail(state, frame, r1, ok1, r2, ref_kf, min_obs, cam, scale_factors, th_depth):
+    """From the motion-model result `r1` (ok1) and the chosen result `r2`:
+    local map, visibility statistics, keyframe-policy counters and the
+    host vector. `ref_kf` is the incoming reference slot (0-d tensor)."""
+    dev = state.device
+    pose2, mp2, n_m2, n_i2 = r2
+    ok2 = ok1 | ((n_m2 >= MIN_MATCHES_REF_KF) & (n_i2 >= MIN_INLIERS_TRACK))
 
     _, pt_mask, ref_kf_new = assemble_local_map(state, mp2, 20)
     pose3, mp3, n_i3, _, visible = track_local_map(
@@ -273,7 +352,8 @@ def full_track_step(state: MapState, frame: FrameData, pose_pred, pose_last,
     )
     pose3 = se3.orthonormalize(pose3)
     ok3 = ok2 & (n_i3 >= MIN_INLIERS_LOCAL)
-    ref_kf_new = torch.where(ok3, ref_kf_new, torch.full_like(ref_kf_new, ref_kf))
+    # A failed frame keeps the incoming reference keyframe.
+    ref_kf_new = torch.where(ok3, ref_kf_new, ref_kf)
 
     P = state.mp_xyz.shape[0]
     mp_visible = state.mp_visible + visible.to(torch.float32)
@@ -286,20 +366,45 @@ def full_track_step(state: MapState, frame: FrameData, pose_pred, pose_last,
     n_close_tracked = torch.sum(close & (mp3 >= 0))
     n_close_untracked = torch.sum(close & (mp3 < 0))
 
-    i64 = lambda x: torch.as_tensor(x, device=dev).to(torch.int64).reshape(())  # noqa: E731
     scalars = torch.stack([
-        i64(ok3), i64(n_i3), i64(ref_kf_new), i64(ref_tracked), i64(n_m1),
-        i64(n_i1), i64(not ok1), i64(n_close_tracked), i64(n_close_untracked),
+        x.to(torch.int64).reshape(()) for x in
+        (ok3, n_i3, ref_kf_new, ref_tracked, r1[2], r1[3], ~ok1, n_close_tracked, n_close_untracked)
     ])
-    host_vec = torch.cat([scalars.to(torch.float32), pose3.reshape(16),
-                          state.kf_pose[ref_kf_new].reshape(16)])
+    ref_pose = state.kf_pose[_slot(ref_kf_new, dev)][0]
+    host_vec = torch.cat([scalars.to(torch.float32), pose3.reshape(16), ref_pose.reshape(16)])
     return FullStepResult(pose=pose3, mp=mp3, mp_visible=mp_visible,
                           mp_found=mp_found, scalars=scalars, host_vec=host_vec)
+
+
+def fused_pipeline_step(state: MapState, image, carry: TrackCarry, min_obs,
+                        extract_impl, build_frame_fn, cam: Camera, scale_factors,
+                        radius_mm, th_depth: float = 0.0, vo_th_depth: float = 0.0):
+    """Extraction, frame build, the sync-free tracking step and the
+    velocity update, queued on the device in one call without a host sync:
+    the pipelined hot path. The host reads `res.host_vec` L frames later.
+    `image` is on the map's device; returns (frame, result, next carry)."""
+    feats = extract_impl(image)
+    frame = build_frame_fn(feats)
+    pose_pred = carry.vel @ carry.pose
+    res = full_track_step_sync_free(
+        state, frame, pose_pred, carry.pose,
+        carry.uv, carry.oct, carry.ang, carry.bip, carry.mp, carry.depth,
+        carry.ref_kf, min_obs, cam, scale_factors, radius_mm, th_depth, vo_th_depth,
+    )
+    ok = res.scalars[0] > 0
+    eye = torch.eye(4, dtype=torch.float32, device=carry.pose.device)
+    vel_new = torch.where(ok, res.pose @ se3.inverse(carry.pose), eye)
+    pose_new = torch.where(ok, res.pose, carry.pose)
+    carry_new = TrackCarry(
+        pose=pose_new, vel=vel_new, uv=frame.uv, oct=frame.oct, ang=frame.ang,
+        bip=frame.bip, depth=frame.depth, mp=res.mp, ref_kf=res.scalars[2],
+    )
+    return frame, res, carry_new
 
 
 def count_ref_tracked(state: MapState, ref_kf, min_obs):
     """TrackedMapPoints of the reference KF (KeyFrame::TrackedMapPoints)."""
     obs = map_ops.observation_counts(state)
-    mp = state.kf_mp[ref_kf]
+    mp = state.kf_mp[_slot(ref_kf, state.device)][0]
     ok = (mp >= 0) & (obs[torch.clamp(mp, min=0).long()] >= min_obs)
     return torch.sum(ok)

@@ -9,7 +9,14 @@ from its plain version.
 The binned rBRIEF gathers the 512 rotated pattern samples straight from
 the blurred patch (the TPU's one-hot matmul exists only for the MXU) and
 rounds each sample to bf16 before comparing, as the reference does.
-The continuous-rotation descriptor (`rotation_bins=0`) is not ported yet.
+With `rotation_bins=0` each level takes the continuous path instead: the
+IC angle from the circular patch's pixels, and the pattern rotated by
+each keypoint's own angle (offsets rounded half to even), its samples
+compared in float32.
+
+Images reach a CUDA device through a ring of pinned host buffers with
+non-blocking copies (`upload`), so queueing a frame does not wait for the
+work already on the stream.
 """
 
 from __future__ import annotations
@@ -100,6 +107,47 @@ def _ic_angle_offsets():
         for dx in range(-u, u + 1):
             offs.append((dy, dx))
     return np.array(offs, np.int32)
+
+
+_IC_OFFSETS = _ic_angle_offsets()
+
+
+def _ic_angle(img, ys, xs, offsets):
+    """IC angle in degrees [0,360) of keypoints (N,) on one level image,
+    summed over the circular patch's pixels; `offsets` (M,2) (dy,dx)."""
+    h, w = img.shape
+    flat = img.reshape(-1)
+    dy, dx = offsets[:, 0], offsets[:, 1]
+    yy = torch.clamp(ys[:, None] + dy[None, :], 0, h - 1)
+    xx = torch.clamp(xs[:, None] + dx[None, :], 0, w - 1)
+    vals = flat[yy * w + xx]
+    m10 = torch.sum(vals * dx[None, :].to(torch.float32), dim=1)
+    m01 = torch.sum(vals * dy[None, :].to(torch.float32), dim=1)
+    ang = torch.rad2deg(torch.atan2(m01, m10))
+    return torch.where(ang < 0, ang + 360.0, ang)
+
+
+def _rbrief(blurred, ys, xs, angle_deg, pattern):
+    """Rotated BRIEF at each keypoint's own angle: sample offset row =
+    rint(px*sin + py*cos), col = rint(px*cos - py*sin) from the blurred
+    level image, bit = I(p1) < I(p2) in float32; packed (N,8) int32.
+    `pattern` (256,4) int32."""
+    h, w = blurred.shape
+    flat = blurred.reshape(-1)
+    rad = torch.deg2rad(angle_deg)
+    a = torch.cos(rad)[:, None]
+    b = torch.sin(rad)[:, None]
+    pf = pattern.to(torch.float32)
+
+    def sample(px, py):
+        r = torch.round(px[None, :] * b + py[None, :] * a).to(torch.int64)
+        c = torch.round(px[None, :] * a - py[None, :] * b).to(torch.int64)
+        yy = torch.clamp(ys[:, None] + r, 0, h - 1)
+        xx = torch.clamp(xs[:, None] + c, 0, w - 1)
+        return flat[yy * w + xx]
+
+    bits = sample(pf[:, 0], pf[:, 1]) < sample(pf[:, 2], pf[:, 3])
+    return hamming.pack_bits(bits)
 
 
 def _angle_moment_weights():
@@ -208,9 +256,8 @@ def _rbrief_binned(patches_flat, angle_deg, rot_index, nbins: int):
 class ORBExtractor:
     """Extraction for a fixed image size on one device."""
 
-    def __init__(self, config: ExtractorConfig, height: int, width: int, device="cuda"):
-        if config.rotation_bins <= 0:
-            raise NotImplementedError("continuous-rotation rBRIEF (rotation_bins=0) is not ported")
+    def __init__(self, config: ExtractorConfig, height: int, width: int, device="cuda",
+                 upload_slots: int = 2):
         self.config = config
         self.height = height
         self.width = width
@@ -221,24 +268,56 @@ class ORBExtractor:
             image_ops.pyramid_shapes(height, width, config.n_levels, config.scale_factor),
             self.device,
         )
-        self.rot_index = torch.as_tensor(
-            build_rotation_index(load_brief_pattern(), config.rotation_bins),
-            device=self.device,
-        )
-        w10, w01 = _angle_moment_weights()
-        self.w10 = torch.as_tensor(w10, device=self.device)
-        self.w01 = torch.as_tensor(w01, device=self.device)
+        if config.rotation_bins > 0:
+            self.rot_index = torch.as_tensor(
+                build_rotation_index(load_brief_pattern(), config.rotation_bins),
+                device=self.device,
+            )
+            w10, w01 = _angle_moment_weights()
+            self.w10 = torch.as_tensor(w10, device=self.device)
+            self.w01 = torch.as_tensor(w01, device=self.device)
+        else:
+            self.pattern = torch.as_tensor(load_brief_pattern(), dtype=torch.int32, device=self.device)
+            self.ic_offsets = torch.as_tensor(_IC_OFFSETS, dtype=torch.int64, device=self.device)
+        # Pinned staging buffers for `upload`, each reused only once the
+        # copy out of it has run (its event).
+        self._ring = [None] * max(upload_slots, 1)
+        self._ring_at = 0
+
+    def upload(self, image):
+        """(H,W) image (numpy or tensor) -> tensor on this extractor's
+        device. A host image bound for CUDA goes through the next pinned
+        buffer of the ring and a non-blocking copy, so the call does not
+        wait for the stream."""
+        if torch.is_tensor(image) and image.device == self.device:
+            return image
+        host = torch.as_tensor(image)
+        if self.device.type != "cuda" or host.device.type != "cpu":
+            return host.to(self.device)
+        slot = self._ring[self._ring_at]
+        if slot is None or slot[0].shape != host.shape or slot[0].dtype != host.dtype:
+            slot = (torch.empty(host.shape, dtype=host.dtype, pin_memory=True),
+                    torch.cuda.Event())
+            self._ring[self._ring_at] = slot
+        elif not slot[1].query():  # its last copy is still queued
+            slot[1].synchronize()
+        self._ring_at = (self._ring_at + 1) % len(self._ring)
+        buf, done = slot
+        buf.copy_(host)
+        img = torch.empty(host.shape, dtype=host.dtype, device=self.device)
+        img.copy_(buf, non_blocking=True)
+        done.record()
+        return img
 
     def __call__(self, image) -> Features:
         """image: (H,W) uint8/float32 grayscale, numpy or tensor."""
-        img = torch.as_tensor(image).to(self.device)
-        return self._extract_impl(img)
+        return self._extract_impl(self.upload(image))
 
     def extract_with_pyramid(self, image):
         """(Features, the image pyramid they were extracted from): the
         levels `image_ops.build_pyramid` gives for this image, which the
         stereo SAD refinement reads again."""
-        img = torch.as_tensor(image).to(self.device)
+        img = self.upload(image)
         levels = image_ops.build_pyramid(img, self.config.n_levels, self.config.scale_factor)
         return self._extract_impl(img, levels), levels
 
@@ -253,19 +332,30 @@ class ORBExtractor:
             [lv.contiguous() for lv in levels], cfg.ini_th_fast, cfg.min_th_fast,
             border=EDGE_THRESHOLD, out=self._corner_maps,
         )
+        binned = cfg.rotation_bins > 0
+        angs, descs = [], []
         for lvl, (img_l, score, quota, scale) in enumerate(zip(levels, scores, quotas, scales)):
             ys, xs, resp, ok = _select_spatial_topk(score, quota)
             blurred = image_ops.separable_gaussian(img_l, 7, 2.0)
-            praws.append(_extract_patches(img_l, ys, xs).reshape(quota, -1))
-            pblurs.append(_extract_patches(blurred, ys, xs).reshape(quota, -1))
+            if binned:
+                praws.append(_extract_patches(img_l, ys, xs).reshape(quota, -1))
+                pblurs.append(_extract_patches(blurred, ys, xs).reshape(quota, -1))
+            else:
+                ang = _ic_angle(img_l, ys, xs, self.ic_offsets)
+                angs.append(ang)
+                descs.append(_rbrief(blurred, ys, xs, ang, self.pattern))
             uv = torch.stack([xs.to(torch.float32), ys.to(torch.float32)], dim=-1) * scale
             uts.append(uv)
             ress.append(resp)
             octs.append(torch.full((quota,), lvl, dtype=torch.int32, device=image.device))
             vals.append(ok)
 
-        angle = _ic_angle_from_patches(torch.cat(praws, 0), self.w10, self.w01)
-        desc = _rbrief_binned(torch.cat(pblurs, 0), angle, self.rot_index, cfg.rotation_bins)
+        if binned:
+            angle = _ic_angle_from_patches(torch.cat(praws, 0), self.w10, self.w01)
+            desc = _rbrief_binned(torch.cat(pblurs, 0), angle, self.rot_index, cfg.rotation_bins)
+        else:
+            angle = torch.cat(angs, 0)
+            desc = torch.cat(descs, 0)
         return Features(
             uv=torch.cat(uts, 0),
             response=torch.cat(ress, 0),

@@ -121,7 +121,7 @@ def make_T(R, t):
     T = torch.zeros(R.shape[:-2] + (4, 4), dtype=R.dtype, device=R.device)
     T[..., :3, :3] = R
     T[..., :3, 3] = t
-    T[..., 3, 3] = 1.0
+    T[..., 3, 3].fill_(1.0)  # `= 1.0` would copy a host scalar to the device
     return T
 
 
@@ -161,7 +161,7 @@ def inverse(T):
     Ti = torch.zeros_like(T)
     Ti[..., :3, :3] = Rt
     Ti[..., :3, 3:4] = -(Rt @ t)
-    Ti[..., 3, 3] = 1.0
+    Ti[..., 3, 3].fill_(1.0)
     return Ti
 
 

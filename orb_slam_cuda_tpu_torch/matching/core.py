@@ -37,11 +37,11 @@ def rotation_consistency(rot_deg, valid, histo_length: int = HISTO_LENGTH,
     bins = torch.arange(histo_length, device=b.device)
     hist = torch.sum(valid[:, None] & (b[:, None] == bins[None, :]), dim=0)
     order = torch.argsort(-hist, stable=True)
-    max1 = hist[order[0]].to(torch.float32)
+    max1 = hist[order[:1]].to(torch.float32)  # (1,): `hist[order[0]]` would read order[0] back
     keep_bins = order[:keep_top]
     keep_counts = hist[keep_bins].to(torch.float32)
     bin_ok = keep_counts >= 0.1 * max1
-    bin_ok[0] = True
+    bin_ok[0].fill_(True)  # `= True` would copy a host scalar to the device
     match_bin_ok = torch.any((b[:, None] == keep_bins[None, :]) & bin_ok[None, :], dim=1)
     return valid & match_bin_ok
 

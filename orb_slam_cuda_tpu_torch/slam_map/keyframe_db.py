@@ -11,6 +11,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..ops.segsum import segment_sum
+
 _PAD = 2**30  # sort-to-the-end sentinel for invalid words
 
 
@@ -44,7 +46,7 @@ def compute_bow_row(word_ids, idf, feat_valid):
     first = torch.ones_like(real)
     first[1:] = ws[1:] != ws[:-1]
     group = torch.cumsum(first.long(), 0) - 1
-    sums = torch.zeros((n,), dtype=torch.float32, device=idf.device).index_add_(0, group, idf_s)
+    sums = segment_sum(n, group, idf_s)
     word_u = torch.full((n,), -1, dtype=torch.int64, device=idf.device).scatter_reduce(
         0, group, torch.where(real, ws, torch.full_like(ws, -1)), reduce="amax", include_self=True
     )

@@ -1,6 +1,8 @@
 """Batched map operations: covisibility, point statistics, culling (torch
 port of orb_slam_cuda_tpu/slam_map/ops.py). Segment sums over the (K,N)
-observation table are `index_add_`; membership masks write True through
+observation table are `index_add_` where the addends are 0/1 (exact in
+any order) and go through `ops/segsum.py` where they are other floats, so
+that they repeat bit for bit on CUDA; membership masks write True through
 a trash slot so padding never touches a real index."""
 
 from __future__ import annotations
@@ -8,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from ..ops import hamming
+from ..ops.segsum import segment_sum
 from .state import MapConfig, MapState
 
 
@@ -22,10 +25,11 @@ def _seg(state: MapState):
 
 def mark(n: int, idx, cond):
     """(n,) bool, True at idx[i] wherever cond[i] (an `.at[].max` of a
-    bool mask); entries with ~cond land in a trash slot."""
+    bool mask); entries with ~cond land in a trash slot. (`index_fill_`:
+    `out[i] = True` copies the host scalar to the device.)"""
     out = torch.zeros((n + 1,), dtype=torch.bool, device=idx.device)
-    out[torch.where(cond, idx.long(), torch.full_like(idx, n, dtype=torch.int64))] = True
-    return out[:n]
+    slots = torch.where(cond, idx.long(), torch.full_like(idx, n, dtype=torch.int64))
+    return out.index_fill_(0, slots.reshape(-1), True)[:n]
 
 
 def observation_counts(state: MapState):
@@ -158,7 +162,7 @@ def update_point_stats(state: MapState, cfg: MapConfig) -> MapState:
     centers_e = centers.repeat_interleave(N, dim=0)
     vec = state.mp_xyz[flat_pt] - centers_e
     vec = vec / torch.clamp(torch.linalg.norm(vec, dim=-1, keepdim=True), min=1e-9)
-    sum_n = torch.zeros((P, 3), dtype=torch.float32, device=dev).index_add_(0, flat_pt, vec * w[:, None])
+    sum_n = segment_sum(P, flat_pt, vec * w[:, None])
     normal = sum_n / torch.clamp(torch.linalg.norm(sum_n, dim=-1, keepdim=True), min=1e-9)
     new_normal = torch.where(has_obs[:, None], normal, state.mp_normal)
 
@@ -232,8 +236,13 @@ def sanitize_bindings(state: MapState, mp):
 
 def _increase(arr, point_ids, amount):
     sel = point_ids >= 0
-    add = sel.to(torch.float32) if amount is None else torch.where(sel, amount, torch.zeros_like(amount))
-    return arr.clone().index_add_(0, torch.clamp(point_ids, min=0).long(), add)
+    idx = torch.clamp(point_ids, min=0).long()
+    if amount is None:  # 0/1 addends: exact in any order
+        return arr.clone().index_add_(0, idx, sel.to(torch.float32))
+    # `arr` enters as each segment's first addend, so the sum is index_add_'s.
+    n = arr.shape[0]
+    seg = torch.cat([torch.arange(n, device=arr.device), idx])
+    return segment_sum(n, seg, torch.cat([arr, torch.where(sel, amount, torch.zeros_like(amount))]))
 
 
 def increase_visible(state: MapState, point_ids, amount=None) -> MapState:

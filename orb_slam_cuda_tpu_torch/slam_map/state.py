@@ -14,6 +14,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..ops.segsum import last_writes
+
 
 class MapConfig(NamedTuple):
     max_keyframes: int = 256  # K
@@ -220,6 +222,8 @@ def bind_observations(state: MapState, kf_slot, feat_idx, point_idx, valid) -> M
     N = state.kf_mp.shape[1]
     row = torch.cat([state.kf_mp[kf_slot], state.kf_mp.new_full((1,), -1)])
     idx = torch.where(valid, feat_idx.long(), torch.full_like(feat_idx, N, dtype=torch.int64))
+    # A feature written twice keeps the later point, as a serial scatter does.
+    idx = torch.where(last_writes(idx, N + 1), idx, torch.full_like(idx, N))
     row[idx] = point_idx.to(row.dtype)
     return state._replace(kf_mp=_set_row(state.kf_mp, kf_slot, row[:N]))
 

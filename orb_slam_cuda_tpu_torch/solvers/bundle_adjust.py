@@ -2,9 +2,11 @@
 gradients over batched residual/Jacobian blocks (torch port of
 orb_slam_cuda_tpu/solvers/bundle_adjust.py, single device).
 
-Segment sums are `index_add_`. On CUDA float atomics make their order,
-and so the last bits of the result, vary from run to run; tests compare
-with a tolerance. Accept/reject steps are tensor `where`s (no sync)."""
+Segment sums go through `ops/segsum.py`: the observation index is sorted
+once per call and every sum adds each segment in observation order, so a
+solve gives the same bits from run to run on CUDA and the bits of
+`index_add_` on the CPU. Accept/reject steps are tensor `where`s (no
+sync)."""
 
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import torch
 
 from ..geometry import se3
 from ..geometry.camera import Camera
+from ..ops.segsum import segment_index, segsum
 from .pose_opt import _projection_jacobian
 
 CHI2_MONO = 5.991
@@ -76,11 +79,6 @@ def _robust_weight(chi2, is_stereo, robust: bool):
     return torch.where(e > d, d / e, torch.ones_like(e))
 
 
-def _segsum(n, idx, vals):
-    out = torch.zeros((n,) + vals.shape[1:], dtype=vals.dtype, device=vals.device)
-    return out.index_add_(0, idx, vals)
-
-
 def bundle_adjust(problem: BAProblem, cam: Camera, lm_iters: int = 10,
                   cg_iters: int = 20, robust: bool = True,
                   chi2_outlier_mono: float = CHI2_MONO,
@@ -94,8 +92,10 @@ def bundle_adjust(problem: BAProblem, cam: Camera, lm_iters: int = 10,
     pi = torch.clamp(problem.obs_pt, min=0).long()
     ov = problem.obs_valid.to(torch.int32)
     nres = ov * torch.where(problem.obs_ur >= 0, 3, 2).to(torch.int32)
-    nobs_cam = _segsum(C, ci, ov)
-    nres_pt = _segsum(P, pi, nres)
+    seg_c = segment_index(C, ci)
+    seg_p = segment_index(P, pi)
+    nobs_cam = segsum(seg_c, ov)
+    nres_pt = segsum(seg_p, nres)
     cam_free = ~problem.cam_fixed & (nobs_cam > 0)
     pt_free = problem.pt_valid & (nres_pt >= 3)
     ABS_DAMP = 1e-3
@@ -116,10 +116,10 @@ def bundle_adjust(problem: BAProblem, cam: Camera, lm_iters: int = 10,
     lam = torch.tensor(1e-4, dtype=torch.float32, device=dev)
     for _ in range(lm_iters):
         rw, Jcw, Jpw, w, err = build_system(cam_pose, xyz)
-        bc = _segsum(C, ci, torch.einsum("eki,ek,e->ei", Jcw, rw, w))
-        bp = _segsum(P, pi, torch.einsum("eki,ek,e->ei", Jpw, rw, w))
-        Hcc = _segsum(C, ci, torch.einsum("eki,ekj,e->eij", Jcw, Jcw, w))
-        Hpp = _segsum(P, pi, torch.einsum("eki,ekj,e->eij", Jpw, Jpw, w))
+        bc = segsum(seg_c, torch.einsum("eki,ek,e->ei", Jcw, rw, w))
+        bp = segsum(seg_p, torch.einsum("eki,ek,e->ei", Jpw, rw, w))
+        Hcc = segsum(seg_c, torch.einsum("eki,ekj,e->eij", Jcw, Jcw, w))
+        Hpp = segsum(seg_p, torch.einsum("eki,ekj,e->eij", Jpw, Jpw, w))
         lam_dc = lam * torch.clamp(torch.diagonal(Hcc, dim1=-2, dim2=-1), min=1e-6) + ABS_DAMP
         lam_dp = lam * torch.clamp(torch.diagonal(Hpp, dim1=-2, dim2=-1), min=1e-6) + ABS_DAMP
         Minv_c = torch.linalg.inv(Hcc + lam_dc[:, :, None] * eye6 + 1e-8 * eye6)
@@ -133,8 +133,8 @@ def bundle_adjust(problem: BAProblem, cam: Camera, lm_iters: int = 10,
             xc = torch.where(cf, xc, torch.zeros_like(xc))
             xp = torch.where(pf, xp, torch.zeros_like(xp))
             ye = torch.einsum("eki,ei->ek", Jcw, xc[ci]) + torch.einsum("eki,ei->ek", Jpw, xp[pi])
-            yc = _segsum(C, ci, torch.einsum("eki,ek,e->ei", Jcw, ye, w)) + lam_dc * xc
-            yp = _segsum(P, pi, torch.einsum("eki,ek,e->ei", Jpw, ye, w)) + lam_dp * xp
+            yc = segsum(seg_c, torch.einsum("eki,ek,e->ei", Jcw, ye, w)) + lam_dc * xc
+            yp = segsum(seg_p, torch.einsum("eki,ek,e->ei", Jpw, ye, w)) + lam_dp * xp
             return (torch.where(cf, yc, torch.zeros_like(yc)),
                     torch.where(pf, yp, torch.zeros_like(yp)))
 

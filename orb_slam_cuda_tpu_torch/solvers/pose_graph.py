@@ -4,8 +4,9 @@ orb_slam_cuda_tpu/solvers/pose_graph.py).
 Per-edge residual r = log(S_ji o S_i o S_j^-1) with Jacobians from
 forward-mode derivatives over the two 7-dim tangents, all edges at once
 (`sim3.tangent_jacobian`, in float64, rounded to float32), then Gauss-Newton steps solved by block-Jacobi
-preconditioned CG over segment sums of the edge list. `index_add_` on
-CUDA sums in no fixed order, so results vary in their last bits there.
+preconditioned CG over segment sums of the edge list. The sums go through
+`ops/segsum.py` (each edge end sorted once per solve, each segment added
+in edge order), so a solve gives the same bits from run to run on CUDA.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from typing import NamedTuple
 import torch
 
 from ..geometry import sim3
+from ..ops.segsum import segment_index, segsum
 
 
 class PoseGraphProblem(NamedTuple):
@@ -45,11 +47,6 @@ def _edge_residual(xi_i, xi_j, SiR, Sit, Sis, SjR, Sjt, Sjs, MR, Mt, Ms):
     return sim3.log(sim3.compose((MR, Mt, Ms), sim3.compose(Si_u, sim3.inverse(Sj_u))))
 
 
-def _segsum(n, idx, vals):
-    out = torch.zeros((n,) + vals.shape[1:], dtype=vals.dtype, device=vals.device)
-    return out.index_add_(0, idx, vals)
-
-
 def optimize_pose_graph(problem: PoseGraphProblem, gn_iters: int = 20, cg_iters: int = 30):
     """Returns the optimized (R (K,3,3), t (K,3), s (K,))."""
     K = problem.vert_R.shape[0]
@@ -57,6 +54,8 @@ def optimize_pose_graph(problem: PoseGraphProblem, gn_iters: int = 20, cg_iters:
     dev = problem.vert_R.device
     ei = torch.clamp(problem.edge_i, min=0).long()
     ej = torch.clamp(problem.edge_j, min=0).long()
+    seg_i = segment_index(K, ei)
+    seg_j = segment_index(K, ej)
     free = ~problem.vert_fixed
     w_e = problem.edge_valid.to(torch.float32)
     meas = (problem.meas_R, problem.meas_t, problem.meas_s)
@@ -73,10 +72,10 @@ def optimize_pose_graph(problem: PoseGraphProblem, gn_iters: int = 20, cg_iters:
         a64 = tuple(a.double() for a in args[2:])
         Ji = sim3.tangent_jacobian(lambda x: _edge_residual(x, zeros.double(), *a64), zeros).float()
         Jj = sim3.tangent_jacobian(lambda x: _edge_residual(zeros.double(), x, *a64), zeros).float()
-        b = (_segsum(K, ei, torch.einsum("eki,ek,e->ei", Ji, r, w_e))
-             + _segsum(K, ej, torch.einsum("eki,ek,e->ei", Jj, r, w_e)))
-        Hd = (_segsum(K, ei, torch.einsum("eki,ekj,e->eij", Ji, Ji, w_e))
-              + _segsum(K, ej, torch.einsum("eki,ekj,e->eij", Jj, Jj, w_e)))
+        b = (segsum(seg_i, torch.einsum("eki,ek,e->ei", Ji, r, w_e))
+             + segsum(seg_j, torch.einsum("eki,ek,e->ei", Jj, r, w_e)))
+        Hd = (segsum(seg_i, torch.einsum("eki,ekj,e->eij", Ji, Ji, w_e))
+              + segsum(seg_j, torch.einsum("eki,ekj,e->eij", Jj, Jj, w_e)))
         Minv = torch.linalg.inv(Hd + 1e-6 * eye7)
         Minv = torch.where(free[:, None, None], Minv, torch.zeros_like(Minv))
         fr = free[:, None]
@@ -84,8 +83,8 @@ def optimize_pose_graph(problem: PoseGraphProblem, gn_iters: int = 20, cg_iters:
         def matvec(x):
             x = torch.where(fr, x, torch.zeros_like(x))
             ye = torch.einsum("eki,ei->ek", Ji, x[ei]) + torch.einsum("eki,ei->ek", Jj, x[ej])
-            y = (_segsum(K, ei, torch.einsum("eki,ek,e->ei", Ji, ye, w_e))
-                 + _segsum(K, ej, torch.einsum("eki,ek,e->ei", Jj, ye, w_e)))
+            y = (segsum(seg_i, torch.einsum("eki,ek,e->ei", Ji, ye, w_e))
+                 + segsum(seg_j, torch.einsum("eki,ek,e->ei", Jj, ye, w_e)))
             y = y + 1e-8 * x
             return torch.where(fr, y, torch.zeros_like(y))
 

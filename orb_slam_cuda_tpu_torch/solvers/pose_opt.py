@@ -1,8 +1,9 @@
 """Pose-only bundle adjustment: batched Levenberg-Marquardt on SE(3)
 (torch port of orb_slam_cuda_tpu/solvers/pose_opt.py): 4 rounds x 10
 LM iterations, Huber in all but the last round, chi2 reclassification
-between rounds. Accept/reject is a tensor `where`, so the 40 iterations
-run without a host sync."""
+between rounds. Accept/reject is a tensor `where`, and the 6x6 solve
+skips its error check (which reads the solver's status back on CUDA), so
+the 40 iterations run without a host sync."""
 
 from __future__ import annotations
 
@@ -86,10 +87,10 @@ def optimize_pose(Tcw0, Xw, uv, ur, inv_sigma2, valid, cam: Camera,
     for rnd in range(rounds):
         robust = rnd < rounds - 1
         H, g, err = normal_eqs(T, active, robust)
-        lam = torch.tensor(1e-3, dtype=torch.float32, device=T.device)
+        lam = torch.full((), 1e-3, dtype=torch.float32, device=T.device)
         for _ in range(iters_per_round):
             D = torch.diag(torch.clamp(torch.diagonal(H), min=1e-8))
-            step = -torch.linalg.solve(H + lam * D, g)
+            step = -torch.linalg.solve_ex(H + lam * D, g, check_errors=False)[0]
             T_new = se3.retract(T, step)
             H_new, g_new, err_new = normal_eqs(T_new, active, robust)
             improved = err_new < err

@@ -5,8 +5,9 @@ The same frames go through a new `System` each time: `--runs` times as the
 port runs by default, then `--runs` times under
 `torch.use_deterministic_algorithms(True, warn_only=True)`. Per run it
 prints the outcome (tracked, keyframes, loops, ATE without scale alignment
-as a share of the extent), the frames at which a keyframe was inserted and
-the camera centre's error every 20th frame. Per pair of runs of one mode it
+as a share of the extent), the frames at which a keyframe was inserted,
+the mapping stages' mean times and the camera centre's error every 20th
+frame. Per pair of runs of one mode it
 prints the first frame whose pose differs in any bit and the first frame at
 which the keyframe counts differ. Under the deterministic mode it lists the
 ops that PyTorch warns have no deterministic version. Then the first run's
@@ -16,15 +17,23 @@ outcome printed: its keyframe slot, the frame that keyframe came from, its
 BoW score and match count, the EPnP inliers, the inliers after each rung of
 the pose ladder and the rung that refused it.
 
+With `--trace`, the default-mode runs record a digest of the outputs of
+every call of the map, mapping, loop-closing and solver functions listed
+in TRACED, in call order, and the tool prints the first call whose outputs
+differ between two runs: its function and frame. (The digests copy the
+outputs to the host, which adds to the stage times.)
+
 Everything is also written as JSON to `--out`.
 
 Usage (from the repository root; needs one GPU unless --device cpu):
-    python3 -m orb_slam_cuda_tpu_torch.tools.rgbd_repeat [--frames 240] [--runs 2]
+    python3 -m orb_slam_cuda_tpu_torch.tools.rgbd_repeat [--frames 240] [--runs 2] [--trace]
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
+import importlib
 import json
 import os
 import subprocess
@@ -38,7 +47,75 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 
-def run_once(cs, cfg, frames, gt_poses, device):
+# module -> functions whose outputs `--trace` digests.
+TRACED = {
+    "orb_slam_cuda_tpu_torch.engine.local_mapping": [
+        "triangulate_and_insert_all", "fuse_all", "apply_fusion", "gather_local_ba_problem",
+        "scatter_ba_result", "create_depth_points", "redundancy_all"],
+    "orb_slam_cuda_tpu_torch.slam_map.ops": [
+        "update_point_stats", "refresh_covis_rows", "cull_points", "covisibility_matrix"],
+    "orb_slam_cuda_tpu_torch.slam_map.state": [
+        "insert_keyframe", "add_points", "bind_observations", "erase_points"],
+    "orb_slam_cuda_tpu_torch.slam_map.keyframe_db": ["compute_bow_row", "insert", "erase"],
+    "orb_slam_cuda_tpu_torch.solvers.bundle_adjust": ["bundle_adjust"],
+    "orb_slam_cuda_tpu_torch.solvers.pose_graph": ["optimize_pose_graph"],
+    "orb_slam_cuda_tpu_torch.engine.tracking": ["full_track_step"],
+    "orb_slam_cuda_tpu_torch.engine.relocalization": ["relocalize"],
+    "orb_slam_cuda_tpu_torch.engine.frame": ["build_frame"],
+}
+
+
+class Tracer:
+    """Wraps the TRACED functions in their modules; `log` gets (function,
+    frame, digest of the tensors in the outputs) per call."""
+
+    def __init__(self):
+        self.log, self.frame, self._saved = [], -1, []
+
+    @staticmethod
+    def _digest(out) -> str:
+        h = hashlib.sha1()
+
+        def walk(x):
+            if torch.is_tensor(x):
+                h.update(x.detach().cpu().contiguous().numpy().tobytes())
+            elif isinstance(x, (tuple, list)):
+                for y in x:
+                    walk(y)
+
+        walk(out)
+        return h.hexdigest()
+
+    def __enter__(self):
+        for mod_name, names in TRACED.items():
+            mod = importlib.import_module(mod_name)
+            for name in names:
+                fn = getattr(mod, name)
+                self._saved.append((mod, name, fn))
+
+                def traced(*a, _fn=fn, _name=f"{mod_name.rsplit('.', 1)[-1]}.{name}", **kw):
+                    out = _fn(*a, **kw)
+                    self.log.append((_name, self.frame, self._digest(out)))
+                    return out
+
+                setattr(mod, name, traced)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in reversed(self._saved):
+            setattr(mod, name, fn)
+        self._saved.clear()
+
+
+def first_traced_difference(a, b):
+    """The first call whose outputs differ: (call index, function, frame)."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return i, x[0], x[1], y[0]
+    return None
+
+
+def run_once(cs, cfg, frames, gt_poses, device, tracer=None):
     """One new System over `frames`. Returns (slam, record)."""
     from orb_slam_cuda_tpu_torch.engine import System
     from orb_slam_cuda_tpu_torch.utils.evaluation import ate_rmse, camera_centers
@@ -46,6 +123,8 @@ def run_once(cs, cfg, frames, gt_poses, device):
     slam = System(cfg, device=device)
     poses, kfs, lost = [], [], []
     for i, (img, depth) in enumerate(frames):
+        if tracer is not None:
+            tracer.frame = i
         pose = slam.track_rgbd(img, depth, i * cs.RGBD_DT)
         poses.append(None if pose is None else np.asarray(pose, np.float64))
         kfs.append(slam.stats.n_keyframes)
@@ -65,6 +144,7 @@ def run_once(cs, cfg, frames, gt_poses, device):
     rec = dict(status=slam.get_status(), live_keyframes=len(slam.kf_order), ate_m=ate, extent_m=extent,
                ate_share=ate / extent, lost_frames=lost, keyframe_frames=kf_frames, center_error_m=err,
                reloc_stages=dict(slam.reloc_stage_stats),
+               mapping_ms=slam.timer.summary("timesMapping.csv"),
                poses=[None if p is None else p.tolist() for p in poses])
     return slam, rec
 
@@ -106,6 +186,8 @@ def main() -> int:
     ap.add_argument("--probe-frames", type=int, default=3)
     ap.add_argument("--out", default=os.path.join("build", "rgbd_repeat.json"))
     ap.add_argument("--device", default="cuda", help="cpu rehearses the script at a few frames")
+    ap.add_argument("--trace", action="store_true",
+                    help="digest the traced functions' outputs in the default runs; print the first that differs")
     args = ap.parse_args()
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("rgbd_repeat: no CUDA device")
@@ -127,9 +209,14 @@ def main() -> int:
         torch.use_deterministic_algorithms(mode == "deterministic", warn_only=True)
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
-            recs = []
+            recs, traces = [], []
             for r in range(args.runs):
-                slam, rec = run_once(cs, cfg, frames, gt_poses, args.device)
+                if args.trace and mode == "default":
+                    with Tracer() as tracer:
+                        slam, rec = run_once(cs, cfg, frames, gt_poses, args.device, tracer)
+                    traces.append(tracer.log)
+                else:
+                    slam, rec = run_once(cs, cfg, frames, gt_poses, args.device)
                 if first_slam is None:
                     first_slam = slam
                 recs.append(rec)
@@ -140,6 +227,8 @@ def main() -> int:
                       f"{rec['lost_frames']}, relocalization stages {rec['reloc_stages']}, worst centre error "
                       f"{worst[0]:.4f} m at frame {worst[1]}", flush=True)
                 print(f"{mode} run {r}: keyframes at frames {rec['keyframe_frames']}", flush=True)
+                print(f"{mode} run {r}: mapping stage means (ms) "
+                      + ", ".join(f"{k} {v:.2f}" for k, v in rec["mapping_ms"].items()), flush=True)
                 print(f"{mode} run {r}: centre error (m) every 20th frame: "
                       + ", ".join(f"{i}: {'lost' if err[i] is None else format(err[i], '.4f')}"
                                   for i in range(0, len(err), 20)), flush=True)
@@ -152,6 +241,11 @@ def main() -> int:
                                                           first_keyframe_difference=kf_at)
                 print(f"{mode} runs {a} and {b}: poses first differ at frame {pose_at}, keyframe insertions "
                       f"first differ at frame {kf_at}", flush=True)
+                if traces:
+                    d = first_traced_difference(traces[a], traces[b])
+                    out["pairs"][f"{mode} {a} vs {b}"]["first_traced_difference"] = d
+                    print(f"{mode} runs {a} and {b}: of {len(traces[a])} traced calls the first whose outputs "
+                          f"differ: {d}", flush=True)
         if mode == "deterministic":
             out["ops_without_a_deterministic_version"] = nondet
             for msg in nondet:

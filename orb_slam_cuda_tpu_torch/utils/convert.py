@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from ..engine.frame import FrameData
+from ..engine.tracking import TrackCarry
 from ..frontend.extractor import Features
 from ..geometry.camera import Camera
 from ..slam_map.keyframe_db import BowDB
@@ -69,6 +70,13 @@ def bow_db(db, device="cpu") -> BowDB:
 def frame_data(frame, device="cpu") -> FrameData:
     """Every field, `right` and `depth` of a stereo/RGB-D frame included."""
     return _named(FrameData, frame, device)
+
+
+def track_carry(carry, device="cpu") -> TrackCarry:
+    """The pipelined step's carry; `ref_kf` becomes a 0-d int64 tensor."""
+    fields = {f: tensor(getattr(carry, f), device) for f in TrackCarry._fields}
+    fields["ref_kf"] = fields["ref_kf"].to(torch.int64).reshape(())
+    return TrackCarry(**fields)
 
 
 def features(feats, device="cpu") -> Features:

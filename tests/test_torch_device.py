@@ -11,7 +11,11 @@ from one frame and launch the kernel twice a stereo frame, once an RGB-D
 frame; match_stereo on the card gives the CPU's depth mask, depths within
 1e-3 relative; the CLI (`run.main` with no --device) runs on the card
 with one launch a frame, writing its frames with the port's PNG writer,
-and powermon reads the card's bytes in use. Marked
+and powermon reads the card's bytes in use; the System at
+`pipeline_lag=3` tracks the orbit on the card with one launch a frame, one
+more pipelined step runs under `torch.cuda.set_sync_debug_mode("error")`
+without raising, and a local BA on its final map, solved twice, gives
+torch.equal results. Marked
 `cuda`; imports no JAX, so it runs with
 
     python -m pytest -o addopts="" --noconftest -p no:cacheprovider -q -m cuda tests/test_torch_device.py
@@ -89,6 +93,56 @@ def test_synchronous_mapping_on_card():
     assert not slam._bg
     slam.reset()
     assert slam.tracking_state.name == "NO_IMAGES_YET" and slam.state.kf_valid.device.type == "cuda"
+
+
+@pytest.fixture(scope="module")
+def pipelined_on_card():
+    """The orbit through the System at pipeline_lag=3 on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the FAST kernel has no CPU or interpret mode")
+    poses, images = _orbit()
+    fast_kernel.launches = 0
+    slam, ate = _run("cuda", poses, images, pipeline_lag=3)
+    return slam, ate, fast_kernel.launches, images
+
+
+@pytest.mark.cuda
+def test_pipelined_system_on_card(pipelined_on_card):
+    slam, ate, launches, images = pipelined_on_card
+    print(f"lag 3 on the card: tracked {slam.tracked_ratio():.3f} ATE {ate:.4f} kfs {slam.stats.n_keyframes}")
+    assert launches == len(images)
+    assert slam.tracked_ratio() > 0.85 and ate < 0.10
+    assert not slam._pending and slam.stats.n_frames == len(images)
+
+
+@pytest.mark.cuda
+def test_pipelined_step_does_not_synchronize(pipelined_on_card):
+    slam, _, _, images = pipelined_on_card
+    if slam._carry is None:
+        slam._carry = slam._make_carry()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, res, carry, host, copied = slam._dispatch_pipelined(images[-1], 3)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    copied.synchronize()
+    assert bool(torch.isfinite(host).all()) and carry.ref_kf.device.type == "cuda"
+
+
+@pytest.mark.cuda
+def test_local_ba_repeats_on_card(pipelined_on_card):
+    from orb_slam_cuda_tpu_torch.engine.local_mapping import gather_local_ba_problem
+    from orb_slam_cuda_tpu_torch.solvers import bundle_adjust as ba
+
+    slam = pipelined_on_card[0]
+    m = slam.mapper
+    problem, _, _ = gather_local_ba_problem(slam.state, slam.kf_order[-1], slam.cam, m.level_inv_sigma2,
+                                            n_local=m.lba_local, n_fixed=m.lba_fixed, n_points=m.lba_points)
+    a = ba.bundle_adjust(problem, slam.cam, lm_iters=10, cg_iters=15)
+    b = ba.bundle_adjust(problem, slam.cam, lm_iters=10, cg_iters=15)
+    for f in ba.BAResult._fields:
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
 
 
 def _need_card():

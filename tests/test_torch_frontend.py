@@ -211,3 +211,82 @@ def _assert_bf16_ties(img, t, rows):
     close = (a - b).abs() <= torch.maximum(a.abs(), b.abs()) * 2.0**-7
     flipped = (a < b) != (a.to(torch.bfloat16) < b.to(torch.bfloat16))
     assert bool((close | ~flipped).all())
+
+
+@pytest.fixture(scope="module")
+def continuous():
+    rng = np.random.default_rng(7)
+    img = jsyn.make_texture(480, 640, rng)
+    j = jex.ORBExtractor(jex.ExtractorConfig(n_features=1000, rotation_bins=0), 480, 640)(img)
+    t = tex.ORBExtractor(tex.ExtractorConfig(n_features=1000, rotation_bins=0), 480, 640, device="cpu")(img)
+    return img, j, t
+
+
+def test_rbrief_continuous_exact(continuous):
+    """Per level, on the reference's blurred level, keypoints and angles."""
+    img, j, _ = continuous
+    pattern = tex.load_brief_pattern()
+    levels = jimg.build_pyramid(jx(np.asarray(img, np.float32)), 8, 1.2)
+    octave, uv, angle = to_np(j.octave), to_np(j.uv), to_np(j.angle)
+    for lvl, level in enumerate(levels):
+        sel = np.flatnonzero(octave == lvl)
+        xs = np.rint(uv[sel, 0] / 1.2**lvl).astype(np.int32)
+        ys = np.rint(uv[sel, 1] / 1.2**lvl).astype(np.int32)
+        blurred = jimg.separable_gaussian(level, 7, 2.0)
+        dj = jex._rbrief(blurred, jx(ys), jx(xs), jx(angle[sel]), jx(pattern.astype(np.int32)))
+        dt = tex._rbrief(tt(np.asarray(blurred)), tt(ys).long(), tt(xs).long(), tt(angle[sel]),
+                         tt(pattern.astype(np.int32)))
+        assert_same(dj, dt, what=f"rBRIEF bits, level {lvl}")
+        aj = jex._ic_angle(level, jx(ys), jx(xs))
+        at = tex._ic_angle(tt(np.asarray(level)), tt(ys).long(), tt(xs).long(), tt(tex._IC_OFFSETS).long())
+        d = np.abs(to_np(aj) - to_np(at))
+        assert np.minimum(d, 360.0 - d).max() < 1e-3, f"IC angle, level {lvl}"
+
+
+def _explained_flips(img, j, t, rows):
+    """(keypoint, pair, offsets, samples, explained) of every differing
+    bit. Explained: a sample offset of the pair lies within 1e-3 px of a
+    rounding tie at either package's angle, or the two samples compared
+    (on the port's blurred level) are within 1e-5 relative of each other,
+    so that the blur's float32 rounding decides the bit."""
+    pattern = tex.load_brief_pattern().astype(np.float64)
+    dj, dt = to_np(j.desc), to_np(t.desc)
+    levels = timg.build_pyramid(torch.as_tensor(np.asarray(img, np.float32)), 8, 1.2)
+    out = []
+    for k in rows:
+        lvl = int(to_np(t.octave)[k])
+        blurred = timg.separable_gaussian(levels[lvl], 7, 2.0).numpy()
+        x, y = np.rint(to_np(t.uv)[k] / 1.2**lvl).astype(int)
+        bits = np.unpackbits((dj[k] ^ dt[k]).view(np.uint8), bitorder="little")
+        for p in np.flatnonzero(bits):
+            offs, samples = [], []
+            for side, ang in enumerate((float(to_np(j.angle)[k]), float(to_np(t.angle)[k]))):
+                a, b = np.cos(np.radians(ang)), np.sin(np.radians(ang))
+                for px, py in (pattern[p, :2], pattern[p, 2:]):
+                    r, c = px * b + py * a, px * a - py * b
+                    offs += [r, c]
+                    if side:
+                        samples.append(float(blurred[y + int(np.rint(r)), x + int(np.rint(c))]))
+            tie = any(abs(abs(o - np.floor(o)) - 0.5) < 1e-3 for o in offs)
+            close = abs(samples[0] - samples[1]) <= 1e-5 * max(abs(samples[0]), abs(samples[1]))
+            out.append((int(k), int(p), np.round(offs, 5).tolist(), samples, tie or close))
+    return out
+
+
+def test_extractor_continuous_rotation(continuous):
+    img, j, t = continuous
+    for f in ("octave", "valid", "uv"):
+        assert_same(getattr(j, f), getattr(t, f), what=f)
+    lvl0 = to_np(j.octave) == 0
+    np.testing.assert_array_equal(to_np(j.response)[lvl0], to_np(t.response)[lvl0])
+    assert_same(j.response, t.response, rtol=1e-5, what="response")  # resized levels: float32 rounding
+    valid = to_np(j.valid)
+    d = np.abs(to_np(j.angle) - to_np(t.angle))[valid]
+    assert np.minimum(d, 360.0 - d).max() < 1e-3
+    dj, dt = to_np(j.desc), to_np(t.desc)
+    rows = np.flatnonzero(valid & ~(dj == dt).all(1))
+    flips = _explained_flips(img, j, t, rows)
+    print(f"continuous rBRIEF: {len(flips)} differing bits of {valid.sum() * 256}: {flips}")
+    assert len(flips) <= 1e-4 * valid.sum() * 256
+    unexplained = [f[:4] for f in flips if not f[4]]
+    assert not unexplained, f"bits that differ away from a tie (keypoint, pair, offsets, samples): {unexplained}"

@@ -147,3 +147,23 @@ def test_predict_octave():
     logsf = np.log(np.float32(1.2))
     assert_same(jsearch.predict_octave(jx(dist), jx(maxd), jx(logsf), 8),
                 tsearch.predict_octave(tt(dist), tt(maxd), tt(logsf), 8))
+
+
+def test_duplicate_resolution_ties_in_both_packages():
+    """The duplicate resolution's key, distance * 1e6 + query index in
+    float32, cannot hold the query index once the distance passes about
+    17 (2^24 / 1e6): two queries at distance 40 on one target tie, and both
+    packages keep both claims (ROADMAP queue 3, a fault of the reference
+    that the port mirrors). The port's binding then keeps the later
+    query's value, as the reference's serial scatter does, on any device."""
+    from orb_slam_cuda_tpu_torch.engine import tracking as ttr
+
+    target = np.array([3, 3, 5, 3], np.int32)
+    dist = np.array([40.0, 40.0, 40.0, 12.0], np.float32)
+    valid = np.array([True, True, True, False])
+    j = jcore.resolve_duplicate_targets(jx(target), jx(dist), jx(valid), 8)
+    t = tcore.resolve_duplicate_targets(tt(target), tt(dist), tt(valid), 8)
+    assert_same(j, t, what="kept claims")
+    assert to_np(t).tolist() == [True, True, True, False]
+    bound = ttr._bind(8, tt(target).long(), torch.tensor([10, 11, 12, 13]), t)
+    assert bound.tolist() == [-1, -1, -1, 11, -1, 12, -1, -1]
