@@ -44,7 +44,17 @@ Phases, each printing its own lines:
      extent, kernel launches, device residency and a finite last pose;
      prints fps, p50/p99, every mapping, loop-closing, global-BA and
      relocalization call with its frame and time;
-  7. stereo path: the first 300 frames (1.15 laps; the first loop closes
+  6b. parallel: the distributed back end on the loop path's final map.
+     (a) its global-BA problem (as the loop closer gathers it) solved by
+     bundle_adjust and by distributed_bundle_adjust on a 1-rank NCCL
+     group: poses within 1e-4, points within 1e-3, inlier masks equal;
+     (b) the same problem saved and solved by 2 spawned ranks sharing the
+     card over gloo: the ranks torch.equal, each within (a)'s tolerance;
+     (c) one cluster_block_ba round on the map on the 1-rank group, run
+     twice: torch.equal, and the global problem's error no higher after
+     it than before. Prints each solve's time;
+  7. stereo path, in a process of its own started after 5b and run beside
+     6, 6b, 8 and 9 (its log is printed when it ends): the first 300 frames (1.15 laps; the first loop closes
      by frame 283) of the same scene and circuit as a rectified pair
      (baseline 0.537 m, bf 386.1448) through System.track_stereo, loop
      closing on, no blank frames. Gated on a pose at frame 0, tracked ratio, ATE WITHOUT
@@ -52,10 +62,10 @@ Phases, each printing its own lines:
      span within 5% of the true one (metric scale), a closed loop, the
      share of left features with a depth, two kernel launches a frame,
      device residency and a finite last pose;
-  8. RGB-D path: the first 120 of the 400 frames of a 640x480 TUM-like
+  8. RGB-D path: the first 90 of the 400 frames of a 640x480 TUM-like
      circuit (8-wall room, radius 1.8 m, 1000 features, 30 fps, depth
      stored as z*5000 truncated to 16 bits) through System.track_rgbd,
-     loop closing on (0.375 lap: no loop can close here; the stereo path
+     loop closing on (0.28 lap: no loop can close here; the stereo path
      is the one that closes loops at fixed scale). Gated on tracked ratio,
      unscaled ATE within 1% of the extent, one launch a frame, residency
      and a finite last pose; then a localization-only probe: the map is
@@ -103,13 +113,16 @@ import time
 WIDTH, HEIGHT = 1241, 376
 # The script must end inside 20 minutes, the frame time is bound by the
 # host, and the same code takes 1.4 times as long on one H100 machine as on
-# another: with 80 orbit, 340 loop-path and 240 RGB-D frames it took 844 s
-# on one and 1,154 s on another (PERF.md has the runs). So two paths are
-# cut: the stereo path to the first STEREO_FRAMES of the circuit (its first
-# loop closed between frames 262 and 283 in five runs of five), the RGB-D
-# path to the first RGBD_RUN of its config's 400 frames. The loop path
-# stays whole: cut to 300 frames its ATE missed the gate in the one run
-# tried. The orbit is bench.py's whole run (bench.py:49-118).
+# another: run one after the other, the paths took 884.9 s on one and
+# 1,243.8 s on another (PERF.md has the runs). So the stereo path runs in a
+# process of its own beside the loop, parallel, RGB-D and CLI paths (the
+# card is idle most of the time, and the host has 8 cores), and two paths
+# are cut: the stereo path to the first STEREO_FRAMES of the circuit (its
+# first loop closed between frames 262 and 283 in six runs of six), the
+# RGB-D path to the first RGBD_RUN of its config's 400 frames (at 400 the
+# script outgrew its limit on the slower hosts). The loop
+# path stays whole: cut to 300 frames its ATE missed the gate in the one
+# run tried. The orbit is bench.py's whole run (bench.py:49-118).
 ORBIT_FRAMES = 108
 MEASURE_FROM = 48  # bench.py's warm-up; frames 48-107 are its measured window
 PIPELINE_LAG = 3  # bench.py's default (BENCH_LAG)
@@ -146,6 +159,8 @@ BLANK_AT = 100  # 3 blank frames; the map holds 39 keyframes by then
 # The JAX reference System on the same 340 frames on the CPU: tracked
 # 0.95, 114 keyframes (112 live), 2 loops, 9 relocalizations (4 lost
 # frames), ATE 0.4865 m of a 62.22 m extent (0.78%).
+PAR_LM_ITERS, PAR_CG_ITERS = 10, 20  # the loop closer's global BA: 10 LM iterations, 20 CG
+PAR_POSE_TOL, PAR_POINT_TOL = 1e-4, 1e-3
 LOOP_REFERENCE = dict(tracked=0.95, loops=2, n_reloc=9, ate=0.4865)
 STEREO_BASELINE, STEREO_BF = 0.537, 386.1448
 TH_DEPTH_FACTOR = 40.0  # ThDepth of the accuracy configs' settings files
@@ -909,7 +924,7 @@ def phase_loop_path(cam, poses, frames, device=None):
         f"{slam.stats.n_reloc} vs {ref['n_reloc']}, ATE {ate:.4f} vs {ref['ate']} m")
     pose = slam.last_pose
     want_launches = len(frames) if slam.device.type == "cuda" else 0  # one launch a frame
-    check_gates("loop path", {
+    gates = {
         "loops_closed >= 1": status["loops_closed"] >= 1,
         "n_reloc >= 1": slam.stats.n_reloc >= 1,
         "tracked_ratio >= 0.85": slam.tracked_ratio() >= 0.85,
@@ -918,8 +933,101 @@ def phase_loop_path(cam, poses, frames, device=None):
         f"fast launches == {want_launches}": launches == want_launches,
         f"map tensors on {slam.device} (off: {off_device})": not off_device,
         "last pose finite": pose is not None and bool(np.isfinite(pose).all()),
+    }
+    check_gates("loop path", gates)
+    return launches, slam
+
+
+def _max_abs(a, b) -> float:
+    return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
+
+
+def phase_parallel(slam):
+    """The distributed back end on the loop path's final System: (a) one
+    rank on a 1-rank group against the single-device solve, (b) two
+    spawned ranks sharing the card over gloo, (c) a cluster refinement
+    round twice. `device="cpu"` rehearses it on gloo ranks."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from orb_slam_cuda_tpu_torch.parallel import distributed_bundle_adjust, make_mesh
+    from orb_slam_cuda_tpu_torch.parallel.cluster_ba import cluster_block_ba
+    from orb_slam_cuda_tpu_torch.parallel.multihost import join_group, run_ranks
+    from orb_slam_cuda_tpu_torch.solvers import bundle_adjust as ba
+    from orb_slam_cuda_tpu_torch.tools import dryrun_multichip
+
+    on_gpu = slam.device.type == "cuda"
+    cam, iters = slam.cam, dict(lm_iters=PAR_LM_ITERS, cg_iters=PAR_CG_ITERS)
+    problem, _ = slam.loop_closer.global_ba_problem(slam.state, slam.kf_order)
+    n_obs, n_pts = int(problem.obs_valid.sum()), int(problem.pt_valid.sum())
+    log(f"parallel: global BA of the loop map: {problem.cam_pose.shape[0]} camera rows "
+        f"({len(slam.kf_order)} keyframes), {n_pts} points, {n_obs} observations; {iters}")
+
+    def close(a, b):
+        return (_max_abs(a.cam_pose, b.cam_pose) <= PAR_POSE_TOL and _max_abs(a.xyz, b.xyz) <= PAR_POINT_TOL)
+
+    def timed_solve(fn):
+        _synchronize(slam.device)
+        t0 = time.perf_counter()
+        out = fn()
+        _synchronize(slam.device)
+        return out, time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory() as tmp:
+        join_group(f"file://{os.path.join(tmp, 'store')}", 1, 0, backend="nccl" if on_gpu else "gloo",
+                   device=str(slam.device))
+        try:
+            mesh = make_mesh(device=str(slam.device))
+            # (a) one rank against the single-device solve
+            single, single_s = timed_solve(lambda: ba.bundle_adjust(problem, cam, **iters))
+            one, one_s = timed_solve(lambda: distributed_bundle_adjust(problem, cam, mesh, **iters))
+            bit_equal = all(torch.equal(x, y) for x, y in zip(single, one))
+            log(f"parallel (a): bundle_adjust {single_s * 1e3:.2f} ms, distributed_bundle_adjust on 1 rank "
+                f"({dist.get_backend()}) {one_s * 1e3:.2f} ms; bit-equal {bit_equal}; pose diff "
+                f"{_max_abs(single.cam_pose, one.cam_pose):.3g}, point diff {_max_abs(single.xyz, one.xyz):.3g}, "
+                f"inlier masks equal {torch.equal(single.obs_inlier, one.obs_inlier)}; final error "
+                f"{float(single.final_error):.6g} vs {float(one.final_error):.6g} (input "
+                f"{float(ba.bundle_adjust(problem, cam, lm_iters=0).final_error):.6g})")
+            # (c) one cluster refinement round, twice
+            inv_sig = 1.0 / torch.as_tensor(slam.map_cfg.level_sigma2, dtype=torch.float32)
+            before = float(ba.bundle_adjust(problem, cam, lm_iters=0).final_error)
+            rounds = [timed_solve(lambda: cluster_block_ba(slam.state, cam, inv_sig, mesh=mesh, rounds=1,
+                                                           lm_iters=4, cg_iters=12)) for _ in range(2)]
+            (r1, r1_s), (r2, r2_s) = rounds
+            repeat = torch.equal(r1.kf_pose, r2.kf_pose) and torch.equal(r1.mp_xyz, r2.mp_xyz)
+            after_problem, _ = slam.loop_closer.global_ba_problem(r1, slam.kf_order)
+            after = float(ba.bundle_adjust(after_problem, cam, lm_iters=0).final_error)
+            log(f"parallel (c): cluster_block_ba round ({mesh.size} cluster(s), lm 4, cg 12) {r1_s * 1e3:.2f} ms "
+                f"and {r2_s * 1e3:.2f} ms, the two runs {'torch.equal' if repeat else 'DIFFER'}; global error "
+                f"{before:.6g} before, {after:.6g} after")
+        finally:
+            dist.destroy_process_group()
+        # (b) two ranks sharing the card over gloo
+        path = os.path.join(tmp, "problem.pt")
+        dryrun_multichip.save_problem(path, problem, cam, **iters)
+        t0 = time.perf_counter()
+        outs = run_ranks(dryrun_multichip.rank_solve, 2, (path, "cuda:0" if on_gpu else "cpu"),
+                         root=os.path.join(tmp, "ranks"), backend="gloo", device=str(slam.device), timeout=300)
+        spawn_s = time.perf_counter() - t0
+    res = [ba.BAResult(**o["result"]) for o in outs]
+    ranks_equal = all(torch.equal(x, y) for x, y in zip(res[0], res[1]))
+    single_cpu = ba.BAResult(*(x.cpu() for x in single))
+    log(f"parallel (b): 2 ranks on {outs[0]['device']} and {outs[1]['device']} over {outs[0]['backend']}: "
+        f"solve {outs[0]['seconds'] * 1e3:.2f} ms and {outs[1]['seconds'] * 1e3:.2f} ms, spawn to results "
+        f"{spawn_s:.1f} s; ranks {'torch.equal' if ranks_equal else 'DIFFER'}; against (a): pose diff "
+        f"{_max_abs(single_cpu.cam_pose, res[0].cam_pose):.3g}, point diff {_max_abs(single_cpu.xyz, res[0].xyz):.3g}, "
+        f"inlier mismatches {int((single_cpu.obs_inlier != res[0].obs_inlier).sum())}, final error "
+        f"{float(res[0].final_error):.6g}")
+    check_gates("parallel", {
+        f"(a) 1 rank within {PAR_POSE_TOL} / {PAR_POINT_TOL} of bundle_adjust": close(single, one),
+        "(a) inlier masks equal": torch.equal(single.obs_inlier, one.obs_inlier),
+        "(b) the 2 ranks torch.equal": ranks_equal,
+        f"(b) each rank within {PAR_POSE_TOL} / {PAR_POINT_TOL} of (a)": all(close(single_cpu, r) for r in res),
+        "(c) a cluster round repeats bit for bit": repeat,
+        "(c) global error not higher after the round": after <= before,
+        "finite results": bool(np.isfinite(float(one.final_error)) and np.isfinite(after)),
     })
-    return launches
 
 
 def phase_stereo_path(cam, poses, frames, device=None):
@@ -1164,6 +1272,68 @@ def phase_cli_path(device=None):
     return launches + p_launches
 
 
+def _stereo_worker(queue, device, n_frames):
+    """The stereo path in a process of its own: its fixture rendered on the
+    card, every gate, its log captured and sent back with its launches."""
+    import io
+    import traceback
+
+    out = io.StringIO()
+    sys.stdout = out
+    try:
+        t0 = time.perf_counter()
+        launches = phase_stereo_path(*make_stereo_fixture(device, n_frames),
+                                     device=None if device == "cuda" else device)
+        queue.put(dict(launches=launches, seconds=time.perf_counter() - t0, log=out.getvalue()))
+    except BaseException:
+        queue.put(dict(error=traceback.format_exc(), log=out.getvalue()))
+
+
+def start_stereo_path(device="cuda", n_frames=STEREO_FRAMES):
+    """Start the stereo path beside the rest; `finish_stereo_path` waits.
+    (`device="cpu"` and a few frames rehearse it.)"""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    proc = ctx.Process(target=_stereo_worker, args=(queue, device, n_frames))
+    proc.start()
+    return proc, queue
+
+
+def finish_stereo_path(handle, timeout_s: float = 1000.0):
+    """Print the stereo path's log; its launches, or raise if it failed."""
+    import queue as queue_mod
+
+    proc, queue = handle
+    deadline = time.perf_counter() + timeout_s
+    try:
+        while True:
+            try:
+                res = queue.get(timeout=5)
+                break
+            except queue_mod.Empty:
+                if not proc.is_alive():  # one more look: its result may be on the way
+                    try:
+                        res = queue.get(timeout=5)
+                        break
+                    except queue_mod.Empty:
+                        raise AssertionError(f"stereo path: its process ended (code {proc.exitcode}) "
+                                             "with no result")
+                if time.perf_counter() > deadline:
+                    raise AssertionError(f"stereo path: no result in {timeout_s} s")
+    finally:
+        proc.join(timeout=60)
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
+    print(res["log"], end="", flush=True)
+    if "error" in res:
+        raise AssertionError("stereo path failed in its process:\n" + res["error"])
+    log(f"stereo path (own process): {res['seconds']:.1f} s")
+    return res["launches"]
+
+
 def main() -> int:
     t_start = time.perf_counter()
     card = phase_device()
@@ -1193,14 +1363,20 @@ def main() -> int:
     launches, orbit_slam = timed("orbit path", phase_main_path, cam, poses, frames, vocab=vocab)
     timed("repeatability", phase_repeatability, orbit_slam)
     del frames, vocab, orbit_slam
-    stereo = timed("stereo fixture", make_stereo_fixture, "cuda")
-    launches += timed("loop path", phase_loop_path,
-                      *timed("loop fixture", make_loop_fixture, "cuda", [left for left, _ in stereo[2]]))
-    launches += timed("stereo path", phase_stereo_path, *stereo)
-    del stereo
-    launches += timed("rgbd path", phase_rgbd_path, *rgbd)
-    del rgbd
-    launches += timed("cli path", phase_cli_path)
+    stereo = start_stereo_path()  # beside the paths below; its log is printed when it ends
+    try:
+        loop_launches, loop_slam = timed("loop path", phase_loop_path,
+                                         *timed("loop fixture", make_loop_fixture, "cuda"))
+        launches += loop_launches
+        timed("parallel", phase_parallel, loop_slam)
+        del loop_slam
+        launches += timed("rgbd path", phase_rgbd_path, *rgbd)
+        del rgbd
+        launches += timed("cli path", phase_cli_path)
+    except BaseException:
+        stereo[0].kill()
+        raise
+    launches += timed("stereo path, waited for", finish_stereo_path, stereo)
     log("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
         + f"; total {time.perf_counter() - t_start:.1f} s")
     log(f"card: {card}")

@@ -8,7 +8,9 @@ are batched tensor ops on the map's device. Scatters that the reference
 drops with mode='drop' or pads onto index 0 write into a trash row here,
 and every gather of a -1-padded index is clamped first. The essential
 graph's edge set is built with tensor ops (encode, unique, sorted).
-Device meshes are not ported: global BA runs on the map's one device.
+With a mesh (parallel/mesh.py, a process group) each global-BA chunk is
+solved by parallel/dist_ba.py over the group and comes back on the map's
+device, the same on every rank; without one it runs on the map's device.
 """
 
 from __future__ import annotations
@@ -275,14 +277,16 @@ class LoopCloser:
     `initializer.default_sampler`). `timer`, if enabled, times the steps
     of a loop closure in timesMapping.csv: `loop_sim3` (the candidates'
     verification) and `loop_correct`, which holds `loop_fuse` and
-    `loop_pose_graph`."""
+    `loop_pose_graph`. `mesh` (parallel/mesh.Mesh) distributes the
+    global BA over its process group."""
 
     GBA_TOTAL_ITERS = 10
     GBA_CHUNK_ITERS = 3
 
     def __init__(self, cfg: MapConfig, cam: Camera, vocab, fix_scale: bool = False,
-                 run_global_ba: bool = True, sampler=None):
+                 run_global_ba: bool = True, sampler=None, mesh=None):
         self.cfg = cfg
+        self.mesh = mesh
         self.cam = cam
         self.vocab = vocab
         self.fix_scale = fix_scale
@@ -559,19 +563,30 @@ class LoopCloser:
     # Global BA: GBA_TOTAL_ITERS LM iterations in chunks of GBA_CHUNK_ITERS,
     # so a superseding loop aborts between chunks and frames interleave.
     def _solve_chunk(self, problem, lm_iters):
+        if self.mesh is not None:
+            from ..parallel import distributed_bundle_adjust
+
+            res = distributed_bundle_adjust(problem, self.cam, self.mesh, lm_iters=lm_iters, cg_iters=20)
+            return ba.BAResult(*(x.to(problem.xyz.device) for x in res))
         return ba.bundle_adjust(problem, self.cam, lm_iters=lm_iters, cg_iters=20)
 
-    def dispatch_global_ba(self, state: MapState, kf_order, kf_gen=None, mp_valid_host=None):
-        """Gather the whole-map BA over the live keyframes (padded to a
-        power-of-two count, the first keyframe fixed) and run its first
-        chunk. kf_gen / mp_valid_host snapshots let finish_global_ba
-        recognize slots recycled meanwhile."""
+    def global_ba_problem(self, state: MapState, kf_order):
+        """The whole-map BA over the live keyframes (padded to a power-of-two
+        count, the first keyframe fixed). Returns (problem, camera slots)."""
         C = max(8, 1 << max(0, len(kf_order) - 1).bit_length())
         cam_arr = np.full(C, -1, np.int64)
         cam_arr[: len(kf_order)] = kf_order
         inv_sig = (1.0 / torch.as_tensor(self.cfg.level_sigma2, dtype=torch.float32)).tolist()
         problem, _, _ = gather_global_ba_problem(
             state, torch.as_tensor(cam_arr, device=state.device), kf_order[0], inv_sig)
+        return problem, cam_arr
+
+    def dispatch_global_ba(self, state: MapState, kf_order, kf_gen=None, mp_valid_host=None):
+        """Gather the whole-map BA over the live keyframes (padded to a
+        power-of-two count, the first keyframe fixed) and run its first
+        chunk. kf_gen / mp_valid_host snapshots let finish_global_ba
+        recognize slots recycled meanwhile."""
+        problem, cam_arr = self.global_ba_problem(state, kf_order)
         chunk = min(self.GBA_CHUNK_ITERS, self.GBA_TOTAL_ITERS)
         return GBAPending(
             idx=self.gba_idx, result=self._solve_chunk(problem, chunk), kfs=list(kf_order),

@@ -10,8 +10,11 @@ relocalization of lost frames, keyframe creation (with depth points for
 stereo/RGB-D), local mapping and loop closing with its chunked global BA
 (synchronous, or through the background queue's units when
 `async_mapping`), localization-only mode with its frame-to-frame visual
-odometry, map save/load and trajectory export. Not ported yet, and
-refused by the constructor: device meshes and cluster refinement.
+odometry, map save/load and trajectory export, and the distributed back
+end: with `mesh` (parallel/mesh.Mesh, a process group) the loop closer's
+global BA is solved over the group, and `cluster_refine_interval` > 0
+queues a round of covisibility-cluster BA (parallel/cluster_ba.py, over
+the mesh when set) every that many keyframes.
 
 Pipelined tracking (`pipeline_lag` = L > 0, monocular only, as in the
 reference): once tracking is OK each frame is queued on the device as one
@@ -22,6 +25,12 @@ pinned memory behind a CUDA event. The host runs the state machine's tail
 (`_readback_ready`), when L frames are in flight, or at once while
 tracking is at risk; so keyframe decisions run up to L frames late.
 Stereo and RGB-D frames stay synchronous at any lag.
+
+With a mesh every rank runs the same host program on the same frames and
+must issue the same collectives in the same order, so no decision may
+depend on host timing: the pipelined path then retires a frame at
+exactly the lag (or at once while at risk), never because its copy has
+happened to land.
 """
 
 from __future__ import annotations
@@ -95,7 +104,12 @@ class SystemConfig:
     kf_ref_ratio: Optional[float] = None
     pipeline_lag: int = 0
     async_mapping: bool = True
+    # Distributed back end (parallel/): a parallel.mesh.Mesh, over which
+    # the loop closer's global BA and the cluster refinement are solved;
+    # every rank must drive the same frames.
     mesh: object = None
+    # Every this many keyframes (once the map holds 8) one round of
+    # covisibility-cluster BA rides the background queue; 0 = off.
     cluster_refine_interval: int = 0
 
 
@@ -109,6 +123,7 @@ class TrackStats:
     n_kf_grows: int = 0
     n_pt_grows: int = 0
     n_vo_frames: int = 0  # localization-mode visual-odometry frames
+    n_cluster_refines: int = 0  # cluster-parallel map refinement rounds
 
 
 class _InFlight(NamedTuple):
@@ -120,16 +135,6 @@ class _InFlight(NamedTuple):
     res: tracking.FullStepResult
     host_vec: torch.Tensor  # (41,) on the CPU (pinned when copied from CUDA)
     copied: Optional[torch.cuda.Event]  # recorded after the copy; None on the CPU
-
-
-def _refuse(config: SystemConfig):
-    unported = {
-        "mesh": config.mesh is not None,
-        "cluster_refine_interval > 0": config.cluster_refine_interval > 0,
-    }
-    bad = [k for k, v in unported.items() if v]
-    if bad:
-        raise NotImplementedError("not ported yet: " + ", ".join(bad))
 
 
 def synthetic_vocabulary(vocab_words: int, seed: int = 0):
@@ -146,7 +151,6 @@ class System:
     """End-to-end SLAM engine (monocular, stereo, RGB-D) on one torch device."""
 
     def __init__(self, config: SystemConfig, vocab=None, seed: int = 0, device="cuda"):
-        _refuse(config)
         self.cfg = config
         self.device = resolve_device(device)
         cam = config.camera
@@ -220,7 +224,7 @@ class System:
         self.reloc_trace = None  # a list here receives every relocalization candidate's outcome
         self.loop_closer = None
         if config.enable_loop_closing:
-            self.loop_closer = LoopCloser(self.map_cfg, cam, self.vocab, fix_scale=not mono)
+            self.loop_closer = LoopCloser(self.map_cfg, cam, self.vocab, fix_scale=not mono, mesh=config.mesh)
             self.loop_closer.timer = self.timer
         # Close-point threshold in meters (ThDepth = factor * baseline).
         self.th_depth = config.th_depth_factor * (cam.bf / cam.fx) if cam.bf > 0 else 0.0
@@ -295,7 +299,8 @@ class System:
         return frame, res, carry, host, copied
 
     def _readback_ready(self, entry: _InFlight) -> bool:
-        """Has the frame's host vector landed? (Always on the CPU.)"""
+        """Has the frame's host vector landed? (Always on the CPU.) Never
+        asked with a mesh: host timing must not steer the ranks apart."""
         return entry.copied is None or entry.copied.query()
 
     def _track_pipelined(self, image, timestamp: float):
@@ -335,7 +340,8 @@ class System:
             self._drain_background()
         out = None
         while self._pending:
-            if not at_risk and len(self._pending) <= lag and not self._readback_ready(self._pending[0]):
+            if (not at_risk and len(self._pending) <= lag
+                    and (self.cfg.mesh is not None or not self._readback_ready(self._pending[0]))):
                 break
             out = self._retire_one()
             if self.tracking_state != TrackingState.OK:
@@ -805,6 +811,16 @@ class System:
             if lc.gba_requested:
                 lc.gba_requested = False
                 self._bg.append(("gba_dispatch",))
+        elif kind == "cluster_refine":
+            from ..parallel.cluster_ba import cluster_block_ba
+
+            with self.timer.stage("timesMapping.csv", "cluster_refine", sync=self._sync()):
+                self.state = cluster_block_ba(
+                    self.state, self.cam,
+                    1.0 / torch.as_tensor(self.map_cfg.level_sigma2, dtype=torch.float32),
+                    mesh=self.cfg.mesh, rounds=1, lm_iters=4, cg_iters=12,
+                )
+            self.stats.n_cluster_refines += 1
         elif kind == "gba_dispatch":
             with self.timer.stage("timesMapping.csv", "gba_dispatch", sync=self._sync()):
                 pending = lc.dispatch_global_ba(self.state, self.kf_order, self.kf_gen,
@@ -929,6 +945,13 @@ class System:
         self.ref_kf = slot
         self.frames_since_kf = 0
         self.stats.n_keyframes += 1
+        # Periodic cluster-parallel map refinement: every N keyframes one
+        # block-coordinate round over covisibility clusters rides the
+        # background queue (over the mesh when set).
+        if (self.cfg.cluster_refine_interval > 0
+                and self.stats.n_keyframes % self.cfg.cluster_refine_interval == 0
+                and len(self.kf_order) >= 8):
+            self._bg.append(("cluster_refine",))
 
         # Keyframes on loop edges are never culled.
         lc = self.loop_closer

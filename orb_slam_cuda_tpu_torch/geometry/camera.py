@@ -79,6 +79,14 @@ def project(cam: Camera, Xc, distort: bool = False):
     return torch.stack([u, v], dim=-1)
 
 
+def project_stereo(cam: Camera, Xc):
+    """(...,3) -> (u, v, u_right), the stereo BA edge's measurement."""
+    uv = project(cam, Xc)
+    z = torch.clamp(Xc[..., 2], min=1e-9)
+    ur = uv[..., 0] - cam.bf / z
+    return torch.cat([uv, ur[..., None]], dim=-1)
+
+
 def backproject(cam: Camera, uv, depth):
     """Pixel coords (...,2) + depth (...,) -> camera-frame points (...,3)."""
     x = (uv[..., 0] - cam.cx) / cam.fx * depth

@@ -21,7 +21,7 @@ import torch
 
 from ..geometry import se3
 from ..solvers import bundle_adjust as ba
-from ..utils.device import host
+from ..utils.device import host, resolve
 
 
 def save_bal(problem, path: str, focal: float):
@@ -56,10 +56,11 @@ def save_bal(problem, path: str, focal: float):
     return path
 
 
-def load_bal(path: str, device="cpu"):
-    """Read a BAL file -> (BAProblem on `device`, focal). Accepts both this
-    module's output and standard BAL datasets (9-param camera rows:
-    angle-axis, t, f, k1, k2 — distortion ignored)."""
+def load_bal(path: str, device="cuda"):
+    """Read a BAL file -> (BAProblem on `device`, focal): the card unless
+    the caller passes `device="cpu"`. Accepts both this module's output
+    and standard BAL datasets (9-param camera rows: angle-axis, t, f, k1,
+    k2 — distortion ignored)."""
     with open(path) as f:
         tokens = f.read().split()
     it = iter(tokens)
@@ -87,7 +88,7 @@ def load_bal(path: str, device="cpu"):
     for p in range(n_pt):
         pts[p] = [float(next(it)) for _ in range(3)]
 
-    dev = torch.device(device)
+    dev = resolve(device)
     problem = ba.BAProblem(
         cam_pose=torch.as_tensor(cams, device=dev),
         cam_fixed=torch.as_tensor(np.arange(n_cam) == 0, device=dev),

@@ -1,12 +1,20 @@
 """Bundle adjustment: Levenberg-Marquardt with preconditioned conjugate
 gradients over batched residual/Jacobian blocks (torch port of
-orb_slam_cuda_tpu/solvers/bundle_adjust.py, single device).
+orb_slam_cuda_tpu/solvers/bundle_adjust.py).
 
 Segment sums go through `ops/segsum.py`: the observation index is sorted
 once per call and every sum adds each segment in observation order, so a
 solve gives the same bits from run to run on CUDA and the bits of
 `index_add_` on the CPU. Accept/reject steps are tensor `where`s (no
-sync)."""
+sync).
+
+With `group` (a `torch.distributed` process group) the function is one
+rank's part of a distributed solve, the counterpart of the reference's
+`axis_name`: the rank holds a block of the points and every observation
+of those points (parallel/dist_ba.py lays the problem out so), the camera
+state is the same on every rank, and the camera-sized sums (`nobs_cam`,
+`bc`, `Hcc`, the matvec's `yc`), the point terms of the CG dot products
+and the error are summed over the group by `all_reduce`."""
 
 from __future__ import annotations
 
@@ -14,6 +22,7 @@ import math
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from ..geometry import se3
 from ..geometry.camera import Camera
@@ -79,12 +88,23 @@ def _robust_weight(chi2, is_stereo, robust: bool):
     return torch.where(e > d, d / e, torch.ones_like(e))
 
 
+def group_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """Sum of `x` over the ranks of `group`, as a new tensor. Every rank
+    gets the same bits: gloo and NCCL reduce in a fixed order and hand all
+    ranks the one result."""
+    y = x.clone()
+    dist.all_reduce(y, op=dist.ReduceOp.SUM, group=group)
+    return y
+
+
 def bundle_adjust(problem: BAProblem, cam: Camera, lm_iters: int = 10,
                   cg_iters: int = 20, robust: bool = True,
                   chi2_outlier_mono: float = CHI2_MONO,
-                  chi2_outlier_stereo: float = CHI2_STEREO) -> BAResult:
+                  chi2_outlier_stereo: float = CHI2_STEREO, group=None) -> BAResult:
     """LM with a PCG inner solve of (H + lam D) dx = -b, block-Jacobi
-    preconditioned; under-constrained cameras and points are frozen."""
+    preconditioned; under-constrained cameras and points are frozen.
+    `group`: see the module's docstring."""
+    psum = (lambda x: x) if group is None else (lambda x: group_sum(x, group))  # noqa: E731
     C = problem.cam_pose.shape[0]
     P = problem.xyz.shape[0]
     dev = problem.xyz.device
@@ -94,7 +114,7 @@ def bundle_adjust(problem: BAProblem, cam: Camera, lm_iters: int = 10,
     nres = ov * torch.where(problem.obs_ur >= 0, 3, 2).to(torch.int32)
     seg_c = segment_index(C, ci)
     seg_p = segment_index(P, pi)
-    nobs_cam = segsum(seg_c, ov)
+    nobs_cam = psum(segsum(seg_c, ov))
     nres_pt = segsum(seg_p, nres)
     cam_free = ~problem.cam_fixed & (nobs_cam > 0)
     pt_free = problem.pt_valid & (nres_pt >= 3)
@@ -109,16 +129,16 @@ def bundle_adjust(problem: BAProblem, cam: Camera, lm_iters: int = 10,
         chi2 = _chi2(r, problem.obs_inv_sigma2, is_stereo)
         w_rob = _robust_weight(chi2, is_stereo, robust)
         w = problem.obs_inv_sigma2 * w_rob * use
-        err = torch.sum(torch.where(use, chi2 * w_rob, torch.zeros_like(chi2)))
+        err = psum(torch.sum(torch.where(use, chi2 * w_rob, torch.zeros_like(chi2))))
         return r * comp, Jc * comp[..., None], Jp * comp[..., None], w, err
 
     cam_pose, xyz = problem.cam_pose, problem.xyz
     lam = torch.tensor(1e-4, dtype=torch.float32, device=dev)
     for _ in range(lm_iters):
         rw, Jcw, Jpw, w, err = build_system(cam_pose, xyz)
-        bc = segsum(seg_c, torch.einsum("eki,ek,e->ei", Jcw, rw, w))
+        bc = psum(segsum(seg_c, torch.einsum("eki,ek,e->ei", Jcw, rw, w)))
         bp = segsum(seg_p, torch.einsum("eki,ek,e->ei", Jpw, rw, w))
-        Hcc = segsum(seg_c, torch.einsum("eki,ekj,e->eij", Jcw, Jcw, w))
+        Hcc = psum(segsum(seg_c, torch.einsum("eki,ekj,e->eij", Jcw, Jcw, w)))
         Hpp = segsum(seg_p, torch.einsum("eki,ekj,e->eij", Jpw, Jpw, w))
         lam_dc = lam * torch.clamp(torch.diagonal(Hcc, dim1=-2, dim2=-1), min=1e-6) + ABS_DAMP
         lam_dp = lam * torch.clamp(torch.diagonal(Hpp, dim1=-2, dim2=-1), min=1e-6) + ABS_DAMP
@@ -133,7 +153,7 @@ def bundle_adjust(problem: BAProblem, cam: Camera, lm_iters: int = 10,
             xc = torch.where(cf, xc, torch.zeros_like(xc))
             xp = torch.where(pf, xp, torch.zeros_like(xp))
             ye = torch.einsum("eki,ei->ek", Jcw, xc[ci]) + torch.einsum("eki,ei->ek", Jpw, xp[pi])
-            yc = segsum(seg_c, torch.einsum("eki,ek,e->ei", Jcw, ye, w)) + lam_dc * xc
+            yc = psum(segsum(seg_c, torch.einsum("eki,ek,e->ei", Jcw, ye, w))) + lam_dc * xc
             yp = segsum(seg_p, torch.einsum("eki,ek,e->ei", Jpw, ye, w)) + lam_dp * xp
             return (torch.where(cf, yc, torch.zeros_like(yc)),
                     torch.where(pf, yp, torch.zeros_like(yp)))
@@ -151,16 +171,18 @@ def bundle_adjust(problem: BAProblem, cam: Camera, lm_iters: int = 10,
         xp = torch.zeros_like(rp)
         zc, zp = precond(rc, rp)
         pc, pp = zc, zp
-        rz = torch.sum(rc * zc) + torch.sum(rp * zp)
+        # Camera vectors are the same on every rank; only the point terms
+        # of the dot products are summed over the group.
+        rz = torch.sum(rc * zc) + psum(torch.sum(rp * zp))
         for _ in range(cg_iters):
             Apc, App = matvec(pc, pp)
-            alpha = rz / safe(torch.sum(pc * Apc) + torch.sum(pp * App))
+            alpha = rz / safe(torch.sum(pc * Apc) + psum(torch.sum(pp * App)))
             xc = xc + alpha * pc
             xp = xp + alpha * pp
             rc = rc - alpha * Apc
             rp = rp - alpha * App
             zc, zp = precond(rc, rp)
-            rz_new = torch.sum(rc * zc) + torch.sum(rp * zp)
+            rz_new = torch.sum(rc * zc) + psum(torch.sum(rp * zp))
             beta = rz_new / safe(rz)
             pc = zc + beta * pc
             pp = zp + beta * pp

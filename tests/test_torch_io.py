@@ -398,11 +398,11 @@ def test_bal_files_cross_between_packages(tmp_path, writer):
         jbal.save_bal(jba.BAProblem(**{k: jnp.asarray(v) for k, v in arrays.items()}), path, 718.856)
     else:
         tbal.save_bal(tba.BAProblem(**{k: torch.as_tensor(v) for k, v in arrays.items()}), path, 718.856)
-    (jp, jf), (tp, tf) = jbal.load_bal(path), tbal.load_bal(path)
+    (jp, jf), (tp, tf) = jbal.load_bal(path), tbal.load_bal(path, device="cpu")
     assert jf == tf == pytest.approx(718.856)
     _assert_problems_close(jp, tp)
     np.testing.assert_allclose(to_np(tp.cam_pose), arrays["cam_pose"], atol=1e-5)
     assert int(tp.obs_valid.sum()) == int(arrays["obs_valid"].sum())
     other = str(tmp_path / "again.bal")
     (tbal.save_bal if writer == "jax" else jbal.save_bal)(tp if writer == "jax" else jp, other, tf)
-    _assert_problems_close(tbal.load_bal(other)[0], jbal.load_bal(other)[0])
+    _assert_problems_close(tbal.load_bal(other, device="cpu")[0], jbal.load_bal(other)[0])

@@ -10,6 +10,11 @@ port's dependencies:
     python -m pytest -o addopts="" --noconftest -p no:cacheprovider -q -m cuda tests/test_torch_kernels.py
 """
 
+import os
+import tempfile
+import types
+from unittest import mock
+
 import numpy as np
 import pytest
 import torch
@@ -19,8 +24,11 @@ from orb_slam_cuda_tpu_torch.engine.local_mapping import LocalMapper
 from orb_slam_cuda_tpu_torch.frontend import fast, image_ops
 from orb_slam_cuda_tpu_torch.frontend.extractor import ExtractorConfig, ORBExtractor
 from orb_slam_cuda_tpu_torch.geometry.camera import Camera
+from orb_slam_cuda_tpu_torch.io.bal import load_bal
 from orb_slam_cuda_tpu_torch.ops import fast_kernel
+from orb_slam_cuda_tpu_torch.parallel import multihost
 from orb_slam_cuda_tpu_torch.slam_map import MapConfig
+from orb_slam_cuda_tpu_torch.tools import dryrun_multichip, multihost_demo, multiseq_shard
 from orb_slam_cuda_tpu_torch.utils import synthetic
 
 torch.set_num_threads(2)
@@ -124,6 +132,35 @@ def test_cell_with_high_corner_only_in_border_still_counts():
 CAM = dict(fx=260.0, fy=260.0, cx=160.0, cy=120.0, width=320, height=240)
 
 
+def _bal_problem_points(**kw):
+    """The points of a one-camera BAL file read by `load_bal`."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "one.bal")
+        with open(path, "w") as f:
+            f.write("1 1 1\n0 0 1.0 2.0\n0 0 0 0 0 0 500 0 0\n0 0 5\n")
+        return load_bal(path, **kw)[0].xyz
+
+
+class _Spawned(Exception):
+    pass
+
+
+def _tool(run):
+    """A tool's run, stopped where it would spawn its ranks: what it gives
+    back is the device it hands them."""
+    def make(**kw):
+        seen = {}
+
+        def spawn(fn, world, args=(), root=".", backend=None, device="cuda", timeout=None):
+            seen["device"] = torch.device(device)
+            raise _Spawned
+
+        with mock.patch.object(multihost, "run_ranks", spawn), pytest.raises(_Spawned):
+            run(**kw)
+        return types.SimpleNamespace(**seen)
+    return make
+
+
 def _entry_points():
     cam = Camera.create(**CAM)
     return {
@@ -132,10 +169,15 @@ def _entry_points():
         "ORBExtractor": lambda **kw: ORBExtractor(ExtractorConfig(n_features=300), 240, 320, **kw),
         "LocalMapper": lambda **kw: LocalMapper(MapConfig(max_keyframes=8, max_features=300, max_points=1024),
                                                 cam, **kw),
+        "load_bal": _bal_problem_points,
+        "dryrun_multichip": _tool(lambda **kw: dryrun_multichip.dryrun_multichip(2, **kw)),
+        "multihost_demo": _tool(multihost_demo.run),
+        "multiseq_shard": _tool(multiseq_shard.run),
     }
 
 
-@pytest.mark.parametrize("name", ["System", "ORBExtractor", "LocalMapper"])
+@pytest.mark.parametrize("name", ["System", "ORBExtractor", "LocalMapper", "load_bal", "dryrun_multichip",
+                                  "multihost_demo", "multiseq_shard"])
 def test_entry_point_without_device_raises_without_card(name):
     """No device argument means the card; with no card the constructor
     raises rather than carry on on the CPU. `device="cpu"` is explicit."""

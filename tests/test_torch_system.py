@@ -2,8 +2,8 @@
 end-to-end orbit fixture (identical rendered frames to both): each
 tracks > 85% of frames with ATE < 0.10 m, keyframe counts agree within
 max(2, 25%), relocalization counts agree; the same with loop closing on.
-Also: relocalization after a blackout, the refused configurations and
-the accepted pipelined and continuous-rotation ones, the
+Also: relocalization after a blackout, the accepted pipelined and
+continuous-rotation configurations, the
 synchronous-mapping path, trajectory export, and (slow tier) loop closure
 on a circuit against the same run with loop closing off, and
 chip_smoke.py's full-size paths on the CPU (the RGB-D one through both
@@ -159,17 +159,6 @@ def test_relocalizes_after_blackout():
     assert tracked_after >= 7, "failed to relocalize after blackout"
     assert slam.stats.n_reloc >= 1
     assert slam.get_status()["state"] == "OK"
-
-
-@pytest.mark.parametrize("kw", [
-    dict(enable_loop_closing=True, mesh=object()),
-    dict(mesh=object()), dict(cluster_refine_interval=4),
-], ids=["loop_closing", "mesh", "cluster_refine"])
-def test_unported_configurations_refused(kw):
-    cfg = dict(CFG, enable_loop_closing=False)
-    cfg.update(kw)
-    with pytest.raises(NotImplementedError):
-        System(SystemConfig(camera=Camera.create(**CAM), **cfg), device="cpu")
 
 
 def test_pipelined_and_continuous_rotation_configurations_accepted():
