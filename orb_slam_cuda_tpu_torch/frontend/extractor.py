@@ -364,3 +364,14 @@ class ORBExtractor:
             desc=desc,
             valid=torch.cat(vals, 0),
         )
+
+
+def descriptors_to_bytes(desc) -> np.ndarray:
+    """(N,8) packed descriptors -> (N,32) uint8 in the reference's byte
+    order: word w's byte b (bits 8b..8b+7) lands in column 4w+b. The
+    port's int32 words are taken as unsigned, so a set top bit is bit 7 of
+    byte 3, not a sign."""
+    d = np.ascontiguousarray(desc.detach().cpu().numpy() if isinstance(desc, torch.Tensor) else desc)
+    if d.dtype == np.int32:
+        d = d.view(np.uint32)
+    return d.astype("<u4").view(np.uint8).reshape(d.shape[0], 32)

@@ -154,6 +154,8 @@ def main(argv=None):
         f"{slam.stats.n_keyframes} keyframes",
         file=sys.stderr,
     )
+    print(f"p99 tracking time {np.percentile(times_arr, 99)*1e3:.1f}ms; "
+          f"{slam.stats.n_reloc} relocalizations", file=sys.stderr)
     if slam.loop_closer is not None:
         print(f"loops closed: {slam.loop_closer.n_loops_closed}", file=sys.stderr)
 

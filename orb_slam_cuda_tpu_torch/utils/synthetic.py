@@ -237,6 +237,23 @@ def ring_obstacles(rng, n: int, ring_radius: float, height: float = 4.0,
     return planes
 
 
+def loop_trajectory(n_frames: int, radius: float = 1.5, overshoot: float = 0.15):
+    """Full in-place yaw loop: the camera walks a small circle while
+    yawing 360*(1+overshoot) degrees, revisiting its starting view
+    (world->cam poses Tcw)."""
+    poses = []
+    total = 2 * np.pi * (1.0 + overshoot)
+    for i in range(n_frames):
+        th = total * i / max(n_frames - 1, 1)
+        c = np.array([radius * np.sin(th), 0.0, -radius * np.cos(th) + radius])
+        Rcw = se3.so3_exp(torch.as_tensor(np.array([0.0, th, 0.0], np.float32))).numpy().T
+        T = np.eye(4)
+        T[:3, :3] = Rcw
+        T[:3, 3] = -Rcw @ c
+        poses.append(T)
+    return poses
+
+
 def circuit_trajectory(n_frames: int, radius: float = 5.0, laps: float = 1.15,
                        start: float = 0.0):
     """KITTI-style circuit: the camera rides a circle of `radius` around

@@ -290,3 +290,19 @@ def test_extractor_continuous_rotation(continuous):
     assert len(flips) <= 1e-4 * valid.sum() * 256
     unexplained = [f[:4] for f in flips if not f[4]]
     assert not unexplained, f"bits that differ away from a tie (keypoint, pair, offsets, samples): {unexplained}"
+
+
+def test_descriptors_to_bytes_exact():
+    """The port's int32 words give the reference's bytes of the same
+    uint32 bits, the top bit set included."""
+    rng = np.random.default_rng(11)
+    words = rng.integers(0, 2**32, (64, 8), dtype=np.uint64).astype(np.uint32)
+    words[0] = 0xFFFFFFFF
+    words[1] = 0x80000000
+    words[2, ::2] = 0x80FF7F01
+    assert (words.view(np.int32) < 0).sum() > 64
+    want = jex.descriptors_to_bytes(jnp.asarray(words))
+    for given in (torch.as_tensor(words.view(np.int32)), words.view(np.int32), words):
+        got = tex.descriptors_to_bytes(given)
+        assert got.dtype == np.uint8 and got.shape == (64, 32)
+        np.testing.assert_array_equal(got, want)

@@ -12,7 +12,6 @@ depth, EuRoC mono and stereo) the port's readers give the reference's
 lengths, timestamps, frame keys, dtypes and arrays, exactly. BAL files:
 a file written by either package loads into the other within 1e-6."""
 
-import dataclasses
 import os
 import sys
 
@@ -35,7 +34,8 @@ from orb_slam_cuda_tpu_torch.io import checkpoint as tckpt
 from orb_slam_cuda_tpu_torch.io import config as tconfig
 from orb_slam_cuda_tpu_torch.io import trajectory as ttraj
 from orb_slam_cuda_tpu_torch.utils import convert
-from torch_parity import STEREO_CAM, STEREO_CFG, STEREO_H, STEREO_W, random_poses, stereo_scene, to_np
+from torch_parity import (STEREO_CAM, STEREO_CFG, STEREO_H, STEREO_W, assert_configs_equal, random_poses,
+                          stereo_scene, to_np)
 
 torch.set_num_threads(2)
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
@@ -76,22 +76,6 @@ SLAM.min_frames_between_kf: 2
 SLAM.kf_cull_redundancy: 0.8
 SLAM.enable_loop_closing: 1
 """
-
-
-def assert_configs_equal(jcfg, tcfg):
-    jf = {f.name for f in dataclasses.fields(jcfg)}
-    for f in dataclasses.fields(tcfg):
-        assert f.name in jf, f.name
-        jv, tv = getattr(jcfg, f.name), getattr(tcfg, f.name)
-        if f.name == "camera":
-            for c in Camera._fields:
-                assert float(np.asarray(getattr(jv, c))) == float(getattr(tv, c)), c
-        elif f.name == "sensor":
-            assert jv.name == tv.name
-        else:
-            assert jv == tv and type(jv) is type(tv), (f.name, jv, tv)
-    # Fields the port does not have are options of unported paths.
-    assert jf - {f.name for f in dataclasses.fields(tcfg)} <= {"use_pallas_fast"}
 
 
 @pytest.mark.parametrize("name", list(SETTINGS))

@@ -1,7 +1,7 @@
 """The port's OpenCV-free renderer, trajectories, evaluation and stage
 timer against the JAX package's. Tolerances: textures within 1 gray level,
 renders >= 95% of pixels within 2 gray levels (measured: all pixels,
-max 2), orbit and circuit poses within 1e-6, ATE/Umeyama within 1e-9,
+max 2), orbit, circuit and loop poses within 1e-6, ATE/Umeyama within 1e-9,
 timer rows exact. The torch render equals, pixel for pixel, the numpy
 render it replaced (kept below as `_numpy_render`) on the circuit scene."""
 
@@ -116,6 +116,17 @@ def test_circuit_scene_and_trajectory(circuit):
         assert pj.scale == pt.scale
     for a, b in zip(jsyn.circuit_trajectory(40, radius=5.0, laps=1.3), poses):
         np.testing.assert_allclose(a, b, atol=1e-6)
+
+
+@pytest.mark.parametrize("n", [1, 2, 37])
+def test_loop_trajectory(n):
+    """The in-place yaw loop: the same 4x4 poses within 1e-6 (so3_exp in
+    float32 in both)."""
+    jp, tp = jsyn.loop_trajectory(n), tsyn.loop_trajectory(n)
+    assert len(jp) == len(tp) == n
+    for a, b in zip(jp, tp):
+        assert b.shape == (4, 4) and b.dtype == np.float64
+        np.testing.assert_allclose(a, b, atol=1e-6, rtol=0)
 
 
 @pytest.mark.parametrize("frame", [0, 13, 31])

@@ -4,10 +4,13 @@ outputs come back as numpy for comparison."""
 
 from __future__ import annotations
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import torch
 
+from orb_slam_cuda_tpu_torch.geometry.camera import Camera
 from orb_slam_cuda_tpu_torch.utils import convert
 
 
@@ -102,3 +105,19 @@ def known_disparity_set(rng, n: int = 64):
     uv_r = uv_l.copy()
     uv_r[:, 0] -= np.float32(STEREO_CAM["bf"]) / depth
     return desc, uv_l, uv_r, depth
+
+
+def assert_configs_equal(jcfg, tcfg):
+    jf = {f.name for f in dataclasses.fields(jcfg)}
+    for f in dataclasses.fields(tcfg):
+        assert f.name in jf, f.name
+        jv, tv = getattr(jcfg, f.name), getattr(tcfg, f.name)
+        if f.name == "camera":
+            for c in Camera._fields:
+                assert float(np.asarray(getattr(jv, c))) == float(getattr(tv, c)), c
+        elif f.name == "sensor":
+            assert jv.name == tv.name
+        else:
+            assert jv == tv and type(jv) is type(tv), (f.name, jv, tv)
+    # Fields the port does not have are options of unported paths.
+    assert jf - {f.name for f in dataclasses.fields(tcfg)} <= {"use_pallas_fast"}
