@@ -36,6 +36,16 @@ Phases, each printing its own lines:
   5b. repeatability: a local BA on the orbit's final map and an
      essential-graph solve on a 256-keyframe ring with a drifted loop
      edge, each run twice on the same inputs on the card: torch.equal;
+  5c. programs: on the card every path runs its per-frame stages as
+     captured CUDA graphs (engine/programs.py). The orbit at lag 0 (all
+     108 frames), the first 30 stereo pairs of phase 7's circuit and the
+     first 30 RGB-D frames of phase 8's, each through two new Systems:
+     under programs.eager() and graphed. Gated on every frame's tracking
+     host vector and the trajectories byte-equal, FAST launches equal to
+     the extracted images in each run, no capture or replay in the eager
+     run, and one frame-stage program call a frame in the graphed one;
+     prints each run's captures, replays, capture seconds, graph pool and
+     peak reserved memory and host ms a frame;
   6. loop path: the 340-frame KITTI-scale circuit (KITTI00-02 camera,
      2000 features, 1.3 laps of radius 22 m in a 12-wall room with 40
      billboards), rendered on the card, with 3 blank frames at frame 100;
@@ -97,6 +107,9 @@ of the main path with its launches summed over all paths (one per
 extracted image). The line before that holds the same numbers for
 fast_score_pair, the entry point the paths do not call. The last line is
 the device JSON. Any failure raises and exits non-zero without them.
+Every path prints its programs' captures and replays (each frame runs one
+frame-stage program: the monocular, stereo or RGB-D frame, or the
+pipelined step; gated), the graph pool and the peak memory reserved.
 
 Usage: python3 chip_smoke.py   (from the repository root; needs one GPU)
 """
@@ -182,6 +195,13 @@ CLI_FIRST_POSE_BY = 60
 CLI_PROBE_FROM, CLI_PROBE_FRAMES = 60, 20
 MONO_TUM_EXTENT = 5.09  # the whole config's ground-truth extent, m (eval/mono_tum.json)
 CLI_ATE_GATE = 0.01 * MONO_TUM_EXTENT
+PROGRAM_FRAMES = 30  # stereo pairs and RGB-D frames of the programs phase
+# Runtime API calls by which the host puts work on the card.
+LAUNCH_APIS = {"cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
+               "cudaGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync"}
+# Each frame runs exactly one of these programs (the pipelined step holds
+# the frame's extraction).
+FRAME_PROGRAMS = ("frame", "pipe", "stereo_frame", "rgbd_frame")
 
 
 def log(*a):
@@ -506,15 +526,44 @@ def phase_vocabulary(device="cuda", depth_l=VOCAB_DEPTH):
     return voc
 
 
-def orbit_config(cam):
+def orbit_config(cam, lag=PIPELINE_LAG):
     """bench.py's SystemConfig (bench.py:99-110) without its TPU switch."""
     from orb_slam_cuda_tpu_torch.engine import Sensor, SystemConfig
 
     return SystemConfig(
         camera=cam, sensor=Sensor.MONOCULAR, n_features=2000, max_keyframes=128,
         max_points=16384, enable_loop_closing=True, max_frames_between_kf=10,
-        min_frames_between_kf=4, pipeline_lag=PIPELINE_LAG,
+        min_frames_between_kf=4, pipeline_lag=lag,
     )
+
+
+def program_summary(name, slam) -> int:
+    """Print the System's per-frame programs (captures, replays, capture
+    seconds), the shared graph pool and the peak memory reserved since the
+    last reset. Returns the calls of the frame-stage programs."""
+    import torch
+
+    st = slam.program_stats()
+    progs = {k: v for k, v in st.items() if k != "pool_bytes"}
+    used = [f"{k} {v['captures']} + {v['replays']}" for k, v in progs.items() if v["captures"] or v["replays"]]
+    peak = torch.cuda.max_memory_reserved() if slam.device.type == "cuda" else 0
+    log(f"{name} programs (captures + replays): {', '.join(used) or 'none'}; "
+        f"{sum(v['captures'] for v in progs.values())} captures in "
+        f"{sum(v['capture_s'] for v in progs.values()):.2f} s, {sum(v['replays'] for v in progs.values())} "
+        f"replays; tracked frames {slam.stats.n_tracked}; graph pool {st['pool_bytes'] / 1e6:.1f} MB, "
+        f"peak reserved {peak / 1e6:.1f} MB")
+    return sum(v["captures"] + v["replays"] for k, v in progs.items() if k in FRAME_PROGRAMS)
+
+
+def reset_peak(device):
+    """Start a path's peak-memory count from what it holds itself: the
+    blocks earlier paths left cached are released first."""
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
 
 
 def build_frame_ms(extractor, cam, vocab, frames) -> float:
@@ -585,6 +634,7 @@ def phase_main_path(cam, poses, frames, device=None, vocab=None):
             f"on the {vocab.n_words}-word vocabulary, {build_frame_ms(slam.extractor, cam, small, some):.2f} ms "
             f"on the {small.n_words}-word synthetic one")
     frame_ms = []
+    reset_peak(slam.device)
     fast_kernel.launches = 0  # count this path's launches only
     t_all = time.perf_counter()
     for i, img in enumerate(host_frames):
@@ -624,9 +674,11 @@ def phase_main_path(cam, poses, frames, device=None, vocab=None):
     for frame, name, _, ns in mapping:
         log(f"mapping stage {name} at frame {frame}: {ns / 1e6:.2f} ms "
             f"(that frame took {frame_ms[frame] if frame < n else float('nan'):.2f} ms)")
+    program_calls = program_summary("main path", slam)
     pose = slam.last_pose
     want_launches = n if on_gpu else 0  # one launch a frame
     check_gates("main path", {
+        f"frame-stage program calls == {want_launches}": program_calls == want_launches,
         "tracked_ratio >= 0.85": slam.tracked_ratio() >= 0.85,
         f"keyframes >= {MIN_KEYFRAMES}": slam.stats.n_keyframes >= MIN_KEYFRAMES,
         "tracking never failed (lost 0, relocalized 0)": slam.stats.n_lost == 0 and slam.stats.n_reloc == 0,
@@ -638,6 +690,120 @@ def phase_main_path(cam, poses, frames, device=None, vocab=None):
     if on_gpu:  # after the launches are read: this step is not the path's
         check_step_syncs_nothing(slam, host_frames[-1])
     return launches, slam
+
+
+def _host_vector_log(slam) -> list:
+    """Wrap the System's lag-0 tracking program so that every frame's host
+    vector is kept, as bytes."""
+    vecs, program = [], slam._track_fn
+
+    def track(*args):
+        res = program(*args)
+        vecs.append(res.host_vec.cpu().numpy().tobytes())
+        return res
+
+    slam._track_fn = track
+    return vecs
+
+
+def graphed_against_eager(name, make, track, frames, dt, want_launches, profiled=0):
+    """The same frames through two new Systems (`make()`), first under
+    programs.eager(), then with the per-frame programs replayed as CUDA
+    graphs; print each run and check the gates of phase 5c. With
+    `profiled` > 0 the last that many frames run under torch.profiler
+    (host API launches and device kernels a frame) and the host time a
+    frame is over the others. Returns each run's numbers."""
+    import contextlib
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from orb_slam_cuda_tpu_torch.engine import programs
+    from orb_slam_cuda_tpu_torch.ops import fast_kernel
+
+    runs = {}
+    timed = len(frames) - profiled
+    for mode in ("eager", "graphed"):
+        slam = make()
+        vecs = _host_vector_log(slam)
+        reset_peak(slam.device)
+        fast_kernel.launches = 0
+        frame_ms = []
+        with programs.eager() if mode == "eager" else contextlib.nullcontext():
+            for i, frame in enumerate(frames[:timed]):
+                t0 = time.perf_counter()
+                track(slam, frame, i * dt)
+                frame_ms.append((time.perf_counter() - t0) * 1e3)
+            profiled_line = ""
+            if profiled:
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    for i in range(timed, len(frames)):
+                        track(slam, frames[i], i * dt)
+                    torch.cuda.synchronize()
+                events = prof.events()
+                host_launches = sum(e.device_type == DeviceType.CPU and e.name in LAUNCH_APIS for e in events)
+                kernels = sum(e.device_type == DeviceType.CUDA for e in events)
+                profiled_line = (f"; frames {timed}-{len(frames) - 1} (torch.profiler): {host_launches / profiled:.1f} "
+                                 f"host API launches and {kernels / profiled:.1f} device kernels a frame")
+            traj = [(ts, None if T is None else np.asarray(T).tobytes(), ok) for ts, T, ok in slam.get_trajectory()]
+        torch.cuda.synchronize()
+        ms = np.asarray(frame_ms)
+        p50, p99 = np.percentile(ms, [50, 99])
+        log(f"programs, {name}, {mode}: {len(frames)} frames, tracked {slam.tracked_ratio():.4f}, keyframes "
+            f"{slam.stats.n_keyframes}; frames 0-{timed - 1}: host {ms.mean():.2f} ms a frame "
+            f"({1e3 / ms.mean():.2f} fps), p50 {p50:.2f}, p99 {p99:.2f} ms{profiled_line}; "
+            f"fast launches {fast_kernel.launches}")
+        calls = program_summary(f"programs, {name}, {mode},", slam)
+        stats = slam.program_stats()
+        runs[mode] = dict(vecs=vecs, traj=traj, launches=fast_kernel.launches, calls=calls,
+                          captured=sum(v["captures"] + v["replays"] for k, v in stats.items() if k != "pool_bytes"),
+                          track_replays=stats["track"]["replays"], host_ms=float(ms.mean()), p50_ms=float(p50),
+                          p99_ms=float(p99), programs=stats, line=profiled_line)
+    e, g = runs["eager"], runs["graphed"]
+    check_gates(f"programs, {name}", {
+        f"host vectors byte-equal ({len(g['vecs'])} frames)": e["vecs"] == g["vecs"] and len(g["vecs"]) > 0,
+        "trajectories byte-equal": e["traj"] == g["traj"],
+        f"fast launches == {want_launches} in each run": e["launches"] == g["launches"] == want_launches,
+        "no capture or replay under programs.eager()": e["captured"] == 0,
+        f"graphed: frame-stage program calls == {len(frames)}": g["calls"] == len(frames),
+        "graphed: the tracking program replayed": g["track_replays"] > 0,
+    })
+    return {mode: {k: v for k, v in r.items() if k not in ("vecs", "traj")} for mode, r in runs.items()}
+
+
+def depth_programs_against_eager(rgbd, profiled=0) -> dict:
+    """The first PROGRAM_FRAMES stereo pairs and RGB-D frames (`rgbd`, the
+    RGB-D fixture), each graphed against eager; `profiled` as in
+    `graphed_against_eager`."""
+    from orb_slam_cuda_tpu_torch.engine import Sensor
+
+    s_cam, _, pairs = make_stereo_fixture("cuda", PROGRAM_FRAMES)
+    r_cam, _, r_frames = rgbd
+    return {
+        "stereo": graphed_against_eager(
+            "stereo", lambda: build_system(circuit_config(s_cam, Sensor.STEREO), None),
+            lambda s, pair, t: s.track_stereo(pair[0], pair[1], t), pairs, 0.1, 2 * PROGRAM_FRAMES, profiled),
+        "rgbd": graphed_against_eager(
+            "rgbd", lambda: build_system(rgbd_config(r_cam), None), _track_rgbd, r_frames[:PROGRAM_FRAMES],
+            RGBD_DT, PROGRAM_FRAMES, profiled),
+    }
+
+
+def phase_programs(cam, frames, vocab, rgbd):
+    """Phase 5c: bench.py's orbit at lag 0, the first PROGRAM_FRAMES stereo
+    pairs and RGB-D frames, each graphed against eager."""
+    import numpy as np
+    import torch
+
+    from orb_slam_cuda_tpu_torch.engine import System
+
+    host_frames = [f.cpu().numpy() if torch.is_tensor(f) else np.asarray(f) for f in frames]
+    graphed_against_eager("orbit at lag 0", lambda: System(orbit_config(cam, lag=0), vocab=vocab),
+                          lambda s, img, t: s.track_monocular(img, t), host_frames, 0.1, len(host_frames))
+    depth_programs_against_eager(rgbd)
 
 
 def ring_pose_graph(n: int, device):
@@ -818,6 +984,7 @@ def drive(slam, track, frames, dt):
     from orb_slam_cuda_tpu_torch.ops import fast_kernel
 
     poses, frame_ms, reloc_calls, depth_share = [], [], [], []
+    reset_peak(slam.device)
     fast_kernel.launches = 0  # count this path's launches only
     t_all = time.perf_counter()
     for i, frame in enumerate(frames):
@@ -837,9 +1004,10 @@ def drive(slam, track, frames, dt):
 
 
 def summarize(name, slam, gt_poses, dt, frame_ms, reloc_calls, total_s, launches, with_scale):
-    """Print a path's outcome, timing, stage means and every mapping, loop,
-    global-BA and relocalization call with its frame. Returns (ATE, extent,
-    estimated / true trajectory span, tensors not on the System's device)."""
+    """Print a path's outcome, timing, stage means, programs and every
+    mapping, loop, global-BA and relocalization call with its frame.
+    Returns (ATE, extent, estimated / true trajectory span, tensors not on
+    the System's device, frame-stage program calls)."""
     import numpy as np
 
     from orb_slam_cuda_tpu_torch.utils.evaluation import ate_rmse, camera_centers
@@ -867,6 +1035,7 @@ def summarize(name, slam, gt_poses, dt, frame_ms, reloc_calls, total_s, launches
         f"p99 {p99:.2f} ms, max {ms.max():.2f} ms")
     for csv in ("times.csv", "timesTracking.csv", "timesMapping.csv"):
         log(f"stage means {csv}, frames 0-{n - 1}: " + stage_means(slam.timer.rows[csv], 0))
+    program_calls = program_summary(name, slam)
     reloc_ms = {frame: ns / 1e6 for frame, stage, _, ns in slam.timer.rows["timesTracking.csv"]
                 if stage == "relocalize"}
     refused = {}
@@ -883,7 +1052,7 @@ def summarize(name, slam, gt_poses, dt, frame_ms, reloc_calls, total_s, launches
         by_frame.setdefault(frame, []).append(f"{stage} {ns / 1e6:.2f} ms")
     for frame in sorted(by_frame):
         log(f"mapping/loop/gba at frame {frame} ({frame_ms[frame]:.2f} ms): " + ", ".join(by_frame[frame]))
-    return ate, extent, span, off_device
+    return ate, extent, span, off_device, program_calls
 
 
 def check_gates(name, checks):
@@ -915,8 +1084,8 @@ def phase_loop_path(cam, poses, frames, device=None):
     slam = build_system(circuit_config(cam, Sensor.MONOCULAR), device)
     _, frame_ms, reloc_calls, _, total_s, launches = drive(
         slam, lambda s, img, t: s.track_monocular(img, t), frames, 0.1)
-    ate, extent, _, off_device = summarize("loop path", slam, poses, 0.1, frame_ms, reloc_calls,
-                                           total_s, launches, with_scale=True)
+    ate, extent, _, off_device, program_calls = summarize("loop path", slam, poses, 0.1, frame_ms, reloc_calls,
+                                                          total_s, launches, with_scale=True)
     status = slam.get_status()
     ref = LOOP_REFERENCE
     log(f"loop path vs JAX reference (CPU, same frames): tracked {slam.tracked_ratio():.4f} vs "
@@ -925,6 +1094,7 @@ def phase_loop_path(cam, poses, frames, device=None):
     pose = slam.last_pose
     want_launches = len(frames) if slam.device.type == "cuda" else 0  # one launch a frame
     gates = {
+        f"frame-stage program calls == {want_launches}": program_calls == want_launches,
         "loops_closed >= 1": status["loops_closed"] >= 1,
         "n_reloc >= 1": slam.stats.n_reloc >= 1,
         "tracked_ratio >= 0.85": slam.tracked_ratio() >= 0.85,
@@ -1039,8 +1209,8 @@ def phase_stereo_path(cam, poses, frames, device=None):
     slam = build_system(circuit_config(cam, Sensor.STEREO), device)
     est, frame_ms, reloc_calls, depth_share, total_s, launches = drive(
         slam, lambda s, pair, t: s.track_stereo(pair[0], pair[1], t), frames, 0.1)
-    ate, extent, span, off_device = summarize("stereo path", slam, poses, 0.1, frame_ms, reloc_calls,
-                                              total_s, launches, with_scale=False)
+    ate, extent, span, off_device, program_calls = summarize("stereo path", slam, poses, 0.1, frame_ms,
+                                                             reloc_calls, total_s, launches, with_scale=False)
     status = slam.get_status()
     share = float(np.mean(depth_share)) if depth_share else 0.0
     log(f"stereo path: pose at frame 0 {est[0] is not None}; valid left features with a depth "
@@ -1048,7 +1218,9 @@ def phase_stereo_path(cam, poses, frames, device=None):
         f"th_depth {slam.th_depth:.2f} m; visual-odometry frames {slam.stats.n_vo_frames}")
     pose = slam.last_pose
     want_launches = 2 * len(frames) if slam.device.type == "cuda" else 0  # left and right
+    want_calls = want_launches // 2
     check_gates("stereo path", {
+        f"frame-stage program calls == {want_calls}": program_calls == want_calls,
         "a pose at frame 0": est[0] is not None,
         "tracked_ratio >= 0.85": slam.tracked_ratio() >= 0.85,
         "unscaled ATE <= 1% of extent": ate <= 0.01 * extent,
@@ -1062,6 +1234,18 @@ def phase_stereo_path(cam, poses, frames, device=None):
     return launches
 
 
+def rgbd_config(cam):
+    """config_rgbd_tum's settings on the circuit's policy."""
+    from orb_slam_cuda_tpu_torch.engine import Sensor
+
+    return circuit_config(cam, Sensor.RGBD, n_features=1000, max_frames_between_kf=30,
+                          depth_map_factor=1.0 / DEPTH_FACTOR)
+
+
+def _track_rgbd(slam, frame, t):
+    return slam.track_rgbd(frame[0], frame[1], t)
+
+
 def phase_rgbd_path(cam, poses, frames, device=None):
     """Track the RGB-D circuit with loop closing on, check every gate, then
     save the map, load it into a new System and localize in it."""
@@ -1069,16 +1253,13 @@ def phase_rgbd_path(cam, poses, frames, device=None):
 
     from orb_slam_cuda_tpu_torch.engine import Sensor
 
-    cfg = circuit_config(cam, Sensor.RGBD, n_features=1000, max_frames_between_kf=30,
-                         depth_map_factor=1.0 / DEPTH_FACTOR)
-
-    def track(s, frame, t):
-        return s.track_rgbd(frame[0], frame[1], t)
+    cfg = rgbd_config(cam)
+    track = _track_rgbd
 
     slam = build_system(cfg, device)
     est, frame_ms, reloc_calls, depth_share, total_s, launches = drive(slam, track, frames, RGBD_DT)
-    ate, extent, span, off_device = summarize("rgbd path", slam, poses, RGBD_DT, frame_ms, reloc_calls,
-                                              total_s, launches, with_scale=False)
+    ate, extent, span, off_device, program_calls = summarize("rgbd path", slam, poses, RGBD_DT, frame_ms,
+                                                             reloc_calls, total_s, launches, with_scale=False)
     log(f"rgbd path: pose at frame 0 {est[0] is not None}; valid features with a depth "
         f"{float(np.mean(depth_share)) if depth_share else 0.0:.4f}; th_depth {slam.th_depth:.2f} m; "
         f"loops closed {slam.get_status()['loops_closed']} (not gated)")
@@ -1086,6 +1267,7 @@ def phase_rgbd_path(cam, poses, frames, device=None):
     on_gpu = slam.device.type == "cuda"
     want_launches = len(frames) if on_gpu else 0
     check_gates("rgbd path", {
+        f"frame-stage program calls == {want_launches}": program_calls == want_launches,
         "tracked_ratio >= 0.85": slam.tracked_ratio() >= 0.85,
         "unscaled ATE <= 1% of extent": ate <= 0.01 * extent,
         f"fast launches == {want_launches}": launches == want_launches,
@@ -1106,6 +1288,7 @@ def phase_rgbd_path(cam, poses, frames, device=None):
         t2 = time.perf_counter()
     loaded_kfs, loaded_pts = int(probe.state.kf_valid.sum()), int(probe.state.mp_valid.sum())
     p_est, p_ms, p_reloc, _, p_s, p_launches = drive(probe, track, frames[:PROBE_FRAMES], RGBD_DT)
+    p_calls = program_summary("localization probe", probe)
     first = next((i for i, p in enumerate(p_est) if p is not None), None)
     tracked = sum(p is not None for p in p_est)
     mapped = [T for _, T, _ in slam.get_trajectory()]  # the mapping run's poses, in the map's frame
@@ -1124,6 +1307,7 @@ def phase_rgbd_path(cam, poses, frames, device=None):
             break
     p_want = len(p_est) if on_gpu else 0
     check_gates("localization probe", {
+        f"frame-stage program calls == {p_want}": p_calls == p_want,
         "relocalizes within the first 3 frames": first is not None and first < 3,
         "tracked >= 0.85 of the frames": tracked >= 0.85 * len(p_est),
         "no keyframe inserted": probe.stats.n_keyframes == len(slam.kf_order) == len(probe.kf_order),
@@ -1136,21 +1320,31 @@ def phase_rgbd_path(cam, poses, frames, device=None):
 
 def _cli(argv):
     """`orb_slam_cuda_tpu_torch.run.main(argv)` in this process, its FAST
-    launches counted from 0; its stderr is captured and printed. Returns
-    (launches, stderr lines, seconds). A non-zero return raises."""
+    launches and program captures and replays counted from 0; its stderr
+    is captured and printed. Returns (launches, stderr lines, seconds). A
+    non-zero return raises."""
     import contextlib
     import io
 
+    import torch
+
     from orb_slam_cuda_tpu_torch import run
+    from orb_slam_cuda_tpu_torch.engine import programs
     from orb_slam_cuda_tpu_torch.ops import fast_kernel
 
     err = io.StringIO()
     fast_kernel.launches = 0  # count this run's launches only
+    programs.captures, programs.replays, programs.capture_s = 0, 0, 0.0
+    on_card = torch.cuda.is_available()
+    reset_peak("cuda" if on_card else "cpu")
     t0 = time.perf_counter()
     with contextlib.redirect_stderr(err):
         rc = run.main(argv)
     seconds = time.perf_counter() - t0
     launches = fast_kernel.launches
+    log(f"  cli: programs: {programs.captures} captures in {programs.capture_s:.2f} s, "
+        f"{programs.replays} replays; peak reserved "
+        f"{torch.cuda.max_memory_reserved() / 1e6 if on_card else 0.0:.1f} MB")
     lines = err.getvalue().splitlines()
     for line in lines:
         log(f"  cli: {line}")
@@ -1362,6 +1556,7 @@ def main() -> int:
     vocab = timed("vocabulary", phase_vocabulary)
     launches, orbit_slam = timed("orbit path", phase_main_path, cam, poses, frames, vocab=vocab)
     timed("repeatability", phase_repeatability, orbit_slam)
+    timed("programs", phase_programs, cam, frames, vocab, rgbd)
     del frames, vocab, orbit_slam
     stereo = start_stereo_path()  # beside the paths below; its log is printed when it ends
     try:

@@ -22,7 +22,9 @@ _SAD_L = 5  # search range +-5 px on the keypoint's level
 def match_stereo(l_uv, l_oct, l_bip, l_valid, r_uv, r_oct, r_bip, r_valid,
                  cam: Camera, scale_factors, left_img=None, right_img=None,
                  left_pyramid=None, right_pyramid=None):
-    """Left->right matching on a rectified pair. Returns (u_right (N,),
+    """Left->right matching on a rectified pair. `scale_factors` is a
+    sequence or, for a call without host syncs, a float32 tensor on the
+    features' device. Returns (u_right (N,),
     depth (N,)), -1 where unmatched (mvuRight/mvDepth):
       * row gate |v_r - v_l| <= 2 * scale[octave_l]; octaves within +-1;
       * disparity in (0.01, bf / b], b the baseline in meters;
@@ -67,6 +69,15 @@ def match_stereo(l_uv, l_oct, l_bip, l_valid, r_uv, r_oct, r_bip, r_valid,
     return torch.where(ok, ur, neg), torch.where(ok, depth, neg)
 
 
+def _int_table(values, device):
+    """(n,) int64 tensor of host ints, written by fills on the device: no
+    host-to-device copy, which a CUDA-graph capture would refuse."""
+    out = torch.empty((len(values),), dtype=torch.int64, device=device)
+    for i, v in enumerate(values):
+        out[i].fill_(int(v))
+    return out
+
+
 def _sad_subpixel(left_pyramid, right_pyramid, l_uv, l_oct, ur0, scale_factors):
     """Batched SAD correlation along the rectified row, each keypoint on
     its own level: both pyramids are flattened into one buffer and the
@@ -80,9 +91,9 @@ def _sad_subpixel(left_pyramid, right_pyramid, l_uv, l_oct, ur0, scale_factors):
     flat_l = torch.cat([p.reshape(-1) for p in left_pyramid])
     flat_r = torch.cat([p.reshape(-1) for p in right_pyramid])
     offs = np.concatenate([[0], np.cumsum([h * w for h, w in shapes])])[:-1]
-    hs = torch.as_tensor([h for h, _ in shapes], dtype=torch.int64, device=dev)
-    ws = torch.as_tensor([w for _, w in shapes], dtype=torch.int64, device=dev)
-    offs = torch.as_tensor(offs, dtype=torch.int64, device=dev)
+    hs = _int_table([h for h, _ in shapes], dev)
+    ws = _int_table([w for _, w in shapes], dev)
+    offs = _int_table(offs, dev)
     sf = torch.as_tensor(scale_factors, dtype=torch.float32, device=dev)
 
     N = l_uv.shape[0]

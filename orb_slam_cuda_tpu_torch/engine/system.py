@@ -26,6 +26,18 @@ pinned memory behind a CUDA event. The host runs the state machine's tail
 tracking is at risk; so keyframe decisions run up to L frames late.
 Stereo and RGB-D frames stay synchronous at any lag.
 
+On the card each per-frame stage is one device program
+(engine/programs.py, the counterpart of the reference's `jax.jit`
+closures), replayed as a captured CUDA graph: `_frame_fn` (extraction and
+frame build, monocular at lag 0), `_track_fn` (the sync-free tracking
+step, every sensor at lag 0), `_pipe_fn` (the fused pipelined step),
+`_stereo_frame_fn` and `_rgbd_frame_fn`. Values that change from frame to
+frame (poses, the reference keyframe, `min_obs`, `th_depth`,
+`vo_th_depth`) enter as tensors; a capacity grow drops the map's graphs.
+On the CPU the System runs the same stages eagerly, as it always has
+(the tracking step's host-branch form at lag 0). Initialization,
+relocalization, mapping, loop closing and BA run eagerly on both.
+
 With a mesh every rank runs the same host program on the same frames and
 must issue the same collectives in the same order, so no decision may
 depend on host timing: the pipelined path then retires a frame at
@@ -57,7 +69,7 @@ from ..solvers import initializer as init_solver
 from ..utils.device import resolve as resolve_device
 from ..utils.timing import StageTimer
 from ..vocab import build_vocabulary
-from . import local_mapping, relocalization, stereo, tracking
+from . import local_mapping, programs, relocalization, stereo, tracking
 from .frame import FrameData, build_frame
 from .loop_closing import LoopCloser
 
@@ -195,6 +207,10 @@ class System:
         self.scale_factors = tuple(self.map_cfg.scale_factors)
         # On the device once, so the pipelined step copies nothing to it.
         self._scale_factors_dev = torch.as_tensor(self.scale_factors, dtype=torch.float32, device=self.device)
+        self._graphed = self.device.type == "cuda"
+        self._programs = self._make_programs()
+        (self._frame_fn, self._track_fn, self._pipe_fn, self._stereo_frame_fn,
+         self._rgbd_frame_fn) = self._programs
 
         self.tracking_state = TrackingState.NO_IMAGES_YET
         self.velocity: Optional[np.ndarray] = None
@@ -238,6 +254,80 @@ class System:
     def _sync(self):
         return self.device if self.device.type == "cuda" else None
 
+    def _make_programs(self):
+        """The five per-frame programs. Their closure constants (camera,
+        vocabulary, extractor, scale factors, search radius, depth factor)
+        are fixed for the System's life; everything else is an argument."""
+        cam, vocab, ex = self.cam, self.vocab, self.extractor
+        sf, radius, depth_factor = self._scale_factors_dev, self._radius_mm, self.cfg.depth_map_factor
+
+        def frame(image):
+            return build_frame(ex._extract_impl(image), cam, vocab)
+
+        def track(state, frame, pose_pred, pose_last, last, ref_kf, min_obs, th_depth, vo_th_depth):
+            return tracking.full_track_step_sync_free(
+                state, frame, pose_pred, pose_last, *last, ref_kf, min_obs, cam, sf, radius,
+                th_depth, vo_th_depth)
+
+        def pipe(state, image, carry, min_obs, th_depth, vo_th_depth):
+            return tracking.fused_pipeline_step(
+                state, image, carry, min_obs, ex._extract_impl, lambda feats: build_frame(feats, cam, vocab),
+                cam, sf, radius, th_depth, vo_th_depth)
+
+        def stereo_frame(left, right):
+            lf, l_pyr = ex.extract_with_pyramid(left)
+            rf, r_pyr = ex.extract_with_pyramid(right)
+            frame = build_frame(lf, cam, vocab)
+            ur, depth = stereo.match_stereo(
+                frame.uv, frame.oct, frame.bip, frame.valid,
+                rf.uv, rf.octave, hamming.bipolar(rf.desc), rf.valid,
+                cam, sf, left_pyramid=l_pyr, right_pyramid=r_pyr,
+            )
+            return frame._replace(right=ur, depth=depth)
+
+        def rgbd_frame(image, depth_map):
+            frame = build_frame(ex._extract_impl(image), cam, vocab)
+            depth = stereo.depth_from_rgbd(frame.uv_raw, frame.valid, depth_map, cam, depth_factor)
+            return frame._replace(right=stereo.virtual_right(frame.uv, depth, cam), depth=depth)
+
+        return tuple(programs.Program(fn, name) for fn, name in (
+            (frame, "frame"), (track, "track"), (pipe, "pipe"), (stereo_frame, "stereo_frame"),
+            (rgbd_frame, "rgbd_frame")))
+
+    def _scalar(self, value, dtype=torch.float32):
+        """A 0-d program input on the card (a fill, no host-to-device copy)."""
+        return torch.full((), value, dtype=dtype, device=self.device)
+
+    def _to_card(self, a):
+        """A host array or tensor on the card, copied through pinned memory
+        without waiting for the stream."""
+        t = torch.as_tensor(a)
+        if t.device.type != "cpu":
+            return t.to(self.device)
+        return t.contiguous().pin_memory().to(self.device, non_blocking=True)
+
+    def _step_values(self, min_obs: int):
+        """(min_obs, th_depth, vo_th_depth) as the tracking step takes them:
+        on the card 0-d tensors, program inputs that a Python number would
+        not be (it would be frozen at capture); on the CPU Python numbers."""
+        if not self._graphed:
+            return min_obs, self.th_depth, self._vo_th_depth
+        return (self._scalar(min_obs, torch.int64), self._scalar(self.th_depth),
+                self._scalar(self._vo_th_depth))
+
+    def _drop_map_graphs(self):
+        """The map's capacities changed: graphs keyed on the old ones can no
+        longer replay."""
+        self._track_fn.clear()
+        self._pipe_fn.clear()
+
+    def program_stats(self) -> dict:
+        """Each per-frame program's captures, replays, capture seconds and
+        live graphs, and the bytes of the shared graph pool (0 on the CPU)."""
+        out = {p.name: p.stats() for p in self._programs}
+        out["pool_bytes"] = programs.pool_bytes() if self._graphed else 0
+        return out
+
     @property
     def _radius_mm(self) -> float:
         return (tracking.MOTION_MODEL_RADIUS_STEREO if self.cfg.sensor == Sensor.STEREO
@@ -259,10 +349,14 @@ class System:
         # retire and the deferred mapping and loop units finish before
         # this frame tracks.
         self._flush_pipeline()
-        with self.timer.stage("times.csv", "orb_extract", sync=self._sync()):
-            feats = self.extractor(image)
-        with self.timer.stage("times.csv", "build_frame", sync=self._sync()):
-            frame = build_frame(feats, self.cam, self.vocab)
+        if self._graphed:
+            with self.timer.stage("times.csv", "orb_extract", sync=self._sync()):
+                frame = self._frame_fn(self.extractor.upload(image))
+        else:
+            with self.timer.stage("times.csv", "orb_extract", sync=self._sync()):
+                feats = self.extractor(image)
+            with self.timer.stage("times.csv", "build_frame", sync=self._sync()):
+                frame = build_frame(feats, self.cam, self.vocab)
         with self.timer.stage("timesTracking.csv", "track", sync=self._sync()):
             pose = self._track(frame, timestamp)
         self.frame_id += 1
@@ -285,11 +379,8 @@ class System:
     def _dispatch_pipelined(self, image, min_obs: int):
         """Queue one frame's fused step on the device and the copy of its
         host vector. Returns (frame, result, carry, host vector, event)."""
-        frame, res, carry = tracking.fused_pipeline_step(
-            self.state, self.extractor.upload(image), self._carry, min_obs,
-            self.extractor._extract_impl, lambda feats: build_frame(feats, self.cam, self.vocab),
-            self.cam, self._scale_factors_dev, self._radius_mm, self.th_depth, self._vo_th_depth,
-        )
+        frame, res, carry = self._pipe_fn(self.state, self.extractor.upload(image), self._carry,
+                                          *self._step_values(min_obs))
         if self.device.type != "cuda":
             return frame, res, carry, res.host_vec, None
         host = torch.empty(res.host_vec.shape, dtype=res.host_vec.dtype, pin_memory=True)
@@ -421,6 +512,10 @@ class System:
         # As in the reference, only the monocular entry drains the
         # background queue first: here a keyframe's deferred units are
         # pumped one a frame, and drained when the next keyframe is due.
+        if self._graphed:
+            with self.timer.stage("times.csv", "orb_extract_stereo", sync=self._sync()):
+                frame = self._stereo_frame_fn(self.extractor.upload(left), self.extractor.upload(right))
+            return self._track_with_depth(frame, timestamp)
         with self.timer.stage("times.csv", "orb_extract_stereo", sync=self._sync()):
             lf, l_pyr = self.extractor.extract_with_pyramid(left)
             rf, r_pyr = self.extractor.extract_with_pyramid(right)
@@ -440,13 +535,17 @@ class System:
         numeric type; meters after scaling by `cfg.depth_map_factor`)."""
         assert self.cfg.sensor == Sensor.RGBD
         self.timer.set_frame(self.frame_id)
+        if isinstance(depth_map, np.ndarray) and depth_map.dtype.kind == "u":
+            depth_map = depth_map.astype(np.int64 if depth_map.dtype.itemsize > 2 else np.int32)
+        if self._graphed:
+            with self.timer.stage("times.csv", "orb_extract_rgbd", sync=self._sync()):
+                frame = self._rgbd_frame_fn(self.extractor.upload(image), self._to_card(depth_map))
+            return self._track_with_depth(frame, timestamp)
         with self.timer.stage("times.csv", "orb_extract_rgbd", sync=self._sync()):
             feats = self.extractor(image)
         with self.timer.stage("times.csv", "build_frame", sync=self._sync()):
             frame = build_frame(feats, self.cam, self.vocab)
         with self.timer.stage("times.csv", "depth_lookup", sync=self._sync()):
-            if isinstance(depth_map, np.ndarray) and depth_map.dtype.kind == "u":
-                depth_map = depth_map.astype(np.int64 if depth_map.dtype.itemsize > 2 else np.int32)
             depth = stereo.depth_from_rgbd(
                 frame.uv_raw, frame.valid, torch.as_tensor(depth_map).to(self.device),
                 self.cam, self.cfg.depth_map_factor,
@@ -532,12 +631,19 @@ class System:
             lf = self.last_frame
             pose_pred = self.velocity @ self.last_pose if self.velocity is not None else self.last_pose
             min_obs = 3 if len(self.kf_order) > 2 else 2
-            res = tracking.full_track_step(
-                self.state, frame, pose_pred.astype(np.float32), self.last_pose.astype(np.float32),
-                lf.uv, lf.oct, lf.ang, lf.bip, lf.mp, lf.depth,
-                self.ref_kf, min_obs, self.cam, self.scale_factors, self._radius_mm,
-                self.th_depth, self._vo_th_depth,
-            )
+            last = (lf.uv, lf.oct, lf.ang, lf.bip, lf.mp, lf.depth)
+            if self._graphed:
+                res = self._track_fn(
+                    self.state, frame, self._to_card(pose_pred.astype(np.float32)),
+                    self._to_card(self.last_pose.astype(np.float32)), last,
+                    self._scalar(self.ref_kf, torch.int64), *self._step_values(min_obs),
+                )
+            else:
+                res = tracking.full_track_step(
+                    self.state, frame, pose_pred.astype(np.float32), self.last_pose.astype(np.float32),
+                    *last, self.ref_kf, min_obs, self.cam, self.scale_factors, self._radius_mm,
+                    self.th_depth, self._vo_th_depth,
+                )
             vec = res.host_vec.cpu().numpy()
             scal = vec[:9].astype(np.int64)
             ok = bool(scal[0])
@@ -885,6 +991,7 @@ class System:
         self.mapper.cfg = self.map_cfg
         if self.loop_closer is not None:
             self.loop_closer.cfg = self.map_cfg
+        self._drop_map_graphs()
         self.stats.n_kf_grows += 1
 
     def _grow_point_capacity(self):
@@ -898,6 +1005,7 @@ class System:
         )
         if self.loop_closer is not None:
             self.loop_closer.cfg = self.map_cfg
+        self._drop_map_graphs()
         self.stats.n_pt_grows += 1
 
     def _ensure_point_headroom(self):
@@ -1130,3 +1238,4 @@ class System:
 
         self._flush_pipeline()
         checkpoint.load_into_system(self, path, localization_only)
+        self._drop_map_graphs()

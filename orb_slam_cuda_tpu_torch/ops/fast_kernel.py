@@ -12,7 +12,10 @@ level by level. `fast_score_pair(img, th_hi, th_lo)` returns the two
 thresholded score maps of one level, the reference kernel's own function;
 its plain version is frontend/fast.py::fast_score at each threshold. CPU
 tensors take the plain version; CUDA tensors launch the kernel or raise.
-`launches` counts kernel launches and nothing else.
+`launches` counts kernel launches and nothing else: a launch recorded
+into a CUDA graph under capture runs nothing, so it counts in `recorded`
+instead, and engine/programs.py adds a graph's recorded launches to
+`launches` at each replay.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ CELL = 32  # the kernel's tile is the cell of the two-threshold choice
 MAX_LEVELS = 16  # capacity of the kernel's level table
 
 launches = 0
+recorded = 0
 _lib = None
 
 
@@ -90,6 +94,14 @@ def _load():
     return _lib
 
 
+def _count():
+    global launches, recorded
+    if torch.cuda.is_current_stream_capturing():
+        recorded += 1
+    else:
+        launches += 1
+
+
 def _check_level(name: str, img, device):
     if img.device != device:
         raise ValueError(f"{name}: levels on {device} and {img.device}; needs one device")
@@ -102,7 +114,6 @@ def _check_level(name: str, img, device):
 
 def fast_score_pair(img, th_hi: float, th_lo: float):
     """(H,W) float32 image -> (score_hi, score_lo) FAST-9 maps."""
-    global launches
     if img.device.type == "cpu":
         return fast.fast_score(img, th_hi), fast.fast_score(img, th_lo)
     if img.device.type != "cuda":
@@ -120,7 +131,7 @@ def fast_score_pair(img, th_hi: float, th_lo: float):
         )
     if rc != 0:
         raise RuntimeError(f"fast_score_pair kernel launch failed: cudaError {rc}")
-    launches += 1
+    _count()
     return hi, lo
 
 
@@ -141,7 +152,6 @@ def fast_corners_pyramid(levels, th_hi: float, th_lo: float, cell: int = CELL,
     one kernel launch for all levels. `out`, if given, is a list of
     tensors shaped like the levels that receive the maps (and are returned);
     otherwise the maps are allocated here."""
-    global launches
     levels = list(levels)
     if not levels:
         raise ValueError("fast_corners_pyramid: no levels")
@@ -182,5 +192,5 @@ def fast_corners_pyramid(levels, th_hi: float, th_lo: float, cell: int = CELL,
         )
     if rc != 0:
         raise RuntimeError(f"fast_corners_pyramid kernel launch failed: cudaError {rc}")
-    launches += 1
+    _count()
     return out

@@ -1,26 +1,38 @@
 """Synchronous (lag 0) against pipelined (lag 3) tracking on bench.py's
-orbit, on one GPU.
+orbit, each eager against graphed, on one GPU.
 
 bench.py's configuration (bench.py:49-118): the 108-frame synthetic
 KITTI-resolution orbit (1241x376, 2000 features, loop closing on,
 `max_frames_between_kf=10`, `min_frames_between_kf=4`) on the stock-scale
 vocabulary (k=10, L=6, generated once into build/ by chip_smoke.py's
-phase), the frames handed over as host arrays. For each lag it prints:
+phase), the frames handed over as host arrays. Each lag runs twice: under
+`programs.eager()` (every per-frame stage launched op by op) and graphed
+(the System's per-frame programs replayed as CUDA graphs, as the card runs
+them by default). For each run it prints:
 
 - tracked ratio, keyframes, loops and sim(3) ATE;
 - fps, p50 and p99 of the per-call host time over frames 48-107 (bench.py's
   window; fps counts the final flush of the frames still in flight);
+- the programs' captures, replays and capture seconds, the graph pool and
+  the peak memory reserved;
 - from torch.profiler over 10 frames of that window (a second run of the
-  same frames, so that the profiler does not touch the timed one): device
-  launches a frame, device busy time a frame, and the idle share of the
-  card over those frames' wall time.
+  same frames, so that the profiler does not touch the timed one): host
+  API launches a frame (kernel, graph, copy and memset launches the host
+  issued), device kernels a frame (the card's kernels, copies and
+  memsets), device busy time a frame, and the idle share of the card over
+  those frames' wall time.
 
-Then, on the lag-3 System's final state, it captures one pipelined step
-(`tracking.fused_pipeline_step`) as a CUDA graph and replays it: the
-replay's outputs must be torch.equal to the eager step's on the same
-inputs, and the replay time is printed beside the eager time (CUDA events
-around the call, median of 20). If the capture fails it prints the op it
-failed at and the error.
+Then, on the graphed lag-3 System's final state, it calls the System's own
+pipelined program (`System._pipe_fn`) on the same inputs under
+`programs.eager()` and as a replay of the graph the run captured: the
+outputs must be torch.equal, and the replay time is printed beside the
+eager time (CUDA events around the call, median of 20). A failed capture
+raises, naming the op it failed at.
+
+Last, the stereo and RGB-D frame programs: chip_smoke.py's phase 5c cuts
+(the first 30 stereo pairs of its circuit, the first 30 RGB-D frames),
+each eager and graphed with the same gates, the last 3 frames of each run
+under torch.profiler (host API launches and device kernels a frame).
 
 Everything is also written as JSON to `--out`.
 
@@ -32,20 +44,20 @@ rehearses the drive at a few frames without the profile and the graph):
 from __future__ import annotations
 
 import argparse
-import dataclasses
+import contextlib
 import json
 import os
 import subprocess
 import sys
 import time
-import traceback
 
 import numpy as np
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
 
 WINDOW_FROM = 48
 PROFILE_FROM, PROFILE_FRAMES = 60, 10
+DEPTH_PROFILED = 3  # the stereo and RGB-D runs' frames under torch.profiler
+MODES = ("eager", "graphed")
 
 
 def _sync(device):
@@ -56,7 +68,13 @@ def _sync(device):
 def make_system(cs, cam, vocab, lag, device):
     from orb_slam_cuda_tpu_torch.engine import System
 
-    return System(dataclasses.replace(cs.orbit_config(cam), pipeline_lag=lag), vocab=vocab, device=device)
+    return System(cs.orbit_config(cam, lag=lag), vocab=vocab, device=device)
+
+
+def mode_context(mode):
+    from orb_slam_cuda_tpu_torch.engine import programs
+
+    return programs.eager() if mode == "eager" else contextlib.nullcontext()
 
 
 def drive(cs, cam, poses, frames, vocab, lag, device):
@@ -64,6 +82,7 @@ def drive(cs, cam, poses, frames, vocab, lag, device):
     from orb_slam_cuda_tpu_torch.utils.evaluation import ate_rmse, camera_centers
 
     slam = make_system(cs, cam, vocab, lag, device)
+    cs.reset_peak(device)
     frame_ms = []
     for i, img in enumerate(frames):
         t0 = time.perf_counter()
@@ -84,6 +103,8 @@ def drive(cs, cam, poses, frames, vocab, lag, device):
                                                         len(frame_ms) - 1],
                fps=len(window) / ((window.sum() + flush_ms) / 1e3), p50_ms=float(p50), p99_ms=float(p99),
                max_ms=float(window.max()), flush_ms=flush_ms, frame_ms=frame_ms,
+               programs=slam.program_stats(),
+               peak_reserved_mb=torch.cuda.max_memory_reserved() / 1e6 if torch.device(device).type == "cuda" else 0.0,
                stage_means={csv: slam.timer.summary(csv) for csv in ("times.csv", "timesTracking.csv",
                                                                      "timesMapping.csv")})
     return slam, rec
@@ -116,34 +137,21 @@ def profile(cs, cam, frames, vocab, lag, device):
             slam.track_monocular(frames[i], i * 0.1)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    events = prof.events()
+    dev = [e for e in events if e.device_type == DeviceType.CUDA]
     if not dev:
         raise AssertionError("torch.profiler recorded no device event")
+    host_launches = sum(1 for e in events if e.device_type == DeviceType.CPU and e.name in cs.LAUNCH_APIS)
     busy = _busy_us(dev)
     kernels = {}
     for e in dev:
         kernels[e.name] = kernels.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
     return dict(frames=[PROFILE_FROM, PROFILE_FROM + PROFILE_FRAMES - 1],
-                launches_per_frame=len(dev) / PROFILE_FRAMES, device_ms_per_frame=busy / 1e3 / PROFILE_FRAMES,
+                host_launches_per_frame=host_launches / PROFILE_FRAMES,
+                device_kernels_per_frame=len(dev) / PROFILE_FRAMES, device_ms_per_frame=busy / 1e3 / PROFILE_FRAMES,
                 wall_ms_per_frame=wall_us / 1e3 / PROFILE_FRAMES, idle_share=1.0 - busy / wall_us,
                 top_device_ms_per_frame={k: v / 1e3 / PROFILE_FRAMES for k, v in top})
-
-
-class _LastOp(TorchDispatchMode):
-    """Remembers the last aten op dispatched and the port's line that
-    called it."""
-
-    def __init__(self):
-        super().__init__()
-        self.last = None
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        frames = [f for f in traceback.extract_stack() if "orb_slam_cuda_tpu_torch" in f.filename
-                  and "tools" not in f.filename]
-        where = f"{frames[-1].filename.split('orb_slam_cuda_tpu_torch/')[-1]}:{frames[-1].lineno}" if frames else "?"
-        self.last = f"{func} at {where}"
-        return func(*args, **(kwargs or {}))
 
 
 def _events_median_ms(fn, reps=20):
@@ -160,56 +168,38 @@ def _events_median_ms(fn, reps=20):
 
 
 def graph_replay(slam, image):
-    """Capture one pipelined step as a CUDA graph, replay it, hold it
-    against the eager step on the same inputs and time both."""
-    from orb_slam_cuda_tpu_torch.engine import tracking
-    from orb_slam_cuda_tpu_torch.engine.frame import build_frame
+    """The System's own pipelined program on its final state: under
+    programs.eager() and as a replay, the outputs held torch.equal, both
+    timed. Leaves the System's state and the kernel's launch count as they
+    were."""
+    from orb_slam_cuda_tpu_torch.engine import programs
     from orb_slam_cuda_tpu_torch.ops import fast_kernel
 
     if slam._carry is None:
         slam._carry = slam._make_carry()
-    carry = tracking.TrackCarry(*(t.clone() for t in slam._carry))
-    img = slam.extractor.upload(image).clone()
-    min_obs = 3 if len(slam.kf_order) > 2 else 2
+    img = slam.extractor.upload(image)
+    values = slam._step_values(3 if len(slam.kf_order) > 2 else 2)
 
     def step():
-        return tracking.fused_pipeline_step(
-            slam.state, img, carry, min_obs, slam.extractor._extract_impl,
-            lambda f: build_frame(f, slam.cam, slam.vocab), slam.cam, slam._scale_factors_dev,
-            slam._radius_mm, slam.th_depth, slam._vo_th_depth)
+        return slam._pipe_fn(slam.state, img, slam._carry, *values)
 
     def flat(out):
         frame, res, nxt = out
         return [*frame, *res, *nxt]
 
-    launches0 = fast_kernel.launches
-    ref = flat(step())
-    torch.cuda.synchronize()
-    eager_ms = _events_median_ms(step)
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            step()
-    torch.cuda.current_stream().wait_stream(side)
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    spy = _LastOp()
-    try:
-        with spy, torch.cuda.graph(graph):
-            out = step()
-    except Exception as e:  # report what broke the capture; nothing falls back
+    launches0, stats0 = fast_kernel.launches, slam._pipe_fn.stats()
+    with programs.eager():
+        ref = flat(step())
         torch.cuda.synchronize()
-        return dict(captured=False, failed_at=spy.last, error=f"{type(e).__name__}: {e}"[:2000],
-                    eager_ms=eager_ms)
-    graph.replay()
+        eager_ms = _events_median_ms(step)
+    got = flat(step())  # a replay if the run captured this key, else a capture
     torch.cuda.synchronize()
-    got = flat(out)
     equal = [torch.equal(a, b) for a, b in zip(ref, got)]
-    replay_ms = _events_median_ms(graph.replay)
+    replay_ms = _events_median_ms(step)
     fast_kernel.launches = launches0  # the tool's own launches
-    return dict(captured=True, outputs=len(ref), outputs_equal=sum(equal), all_equal=all(equal),
-                eager_ms=eager_ms, replay_ms=replay_ms)
+    stats = slam._pipe_fn.stats()
+    return dict(outputs=len(ref), outputs_equal=sum(equal), all_equal=all(equal), eager_ms=eager_ms,
+                replay_ms=replay_ms, captured_here=stats["captures"] - stats0["captures"])
 
 
 def main() -> int:
@@ -236,30 +226,40 @@ def main() -> int:
     out = dict(card=card, runs={})
     slam = None
     for lag in args.lags:
-        slam, rec = drive(cs, cam, poses, frames, vocab, lag, args.device)
-        a, b = rec["window"]
-        print(f"lag {lag}: tracked {rec['tracked_ratio']:.4f}, keyframes {rec['keyframes']}, lost {rec['lost']}, "
-              f"loops {rec['status']['loops_closed']}, ATE {rec['ate_m']:.4f} m; frames {a}-{b}: "
-              f"{rec['fps']:.2f} fps, p50 {rec['p50_ms']:.2f} ms, p99 {rec['p99_ms']:.2f} ms, "
-              f"max {rec['max_ms']:.2f} ms, final flush {rec['flush_ms']:.2f} ms", flush=True)
-        print(f"lag {lag}: stage means {json.dumps(rec['stage_means'])}", flush=True)
-        if on_gpu and args.frames >= PROFILE_FROM + PROFILE_FRAMES:
-            rec["profile"] = p = profile(cs, cam, frames, vocab, lag, args.device)
-            print(f"lag {lag}: torch.profiler over frames {p['frames'][0]}-{p['frames'][1]}: "
-                  f"{p['launches_per_frame']:.1f} device launches a frame, {p['device_ms_per_frame']:.2f} ms "
-                  f"device time a frame of {p['wall_ms_per_frame']:.2f} ms wall, idle share "
-                  f"{p['idle_share']:.4f}; top device ms a frame {json.dumps(p['top_device_ms_per_frame'])}",
+        for mode in MODES:
+            name = f"lag {lag}, {mode}"
+            with mode_context(mode):
+                slam, rec = drive(cs, cam, poses, frames, vocab, lag, args.device)
+            a, b = rec["window"]
+            progs = {k: v for k, v in rec["programs"].items() if k != "pool_bytes"}
+            print(f"{name}: tracked {rec['tracked_ratio']:.4f}, keyframes {rec['keyframes']}, lost {rec['lost']}, "
+                  f"loops {rec['status']['loops_closed']}, ATE {rec['ate_m']:.4f} m; frames {a}-{b}: "
+                  f"{rec['fps']:.2f} fps, p50 {rec['p50_ms']:.2f} ms, p99 {rec['p99_ms']:.2f} ms, "
+                  f"max {rec['max_ms']:.2f} ms, final flush {rec['flush_ms']:.2f} ms", flush=True)
+            print(f"{name}: programs (captures + replays) "
+                  + ", ".join(f"{k} {v['captures']} + {v['replays']}" for k, v in progs.items())
+                  + f"; capture {sum(v['capture_s'] for v in progs.values()):.2f} s; graph pool "
+                  f"{rec['programs']['pool_bytes'] / 1e6:.1f} MB, peak reserved {rec['peak_reserved_mb']:.1f} MB",
                   flush=True)
-        out["runs"][str(lag)] = {k: v for k, v in rec.items() if k != "frame_ms"}
+            print(f"{name}: stage means {json.dumps(rec['stage_means'])}", flush=True)
+            if on_gpu and args.frames >= PROFILE_FROM + PROFILE_FRAMES:
+                with mode_context(mode):
+                    rec["profile"] = p = profile(cs, cam, frames, vocab, lag, args.device)
+                print(f"{name}: torch.profiler over frames {p['frames'][0]}-{p['frames'][1]}: "
+                      f"{p['host_launches_per_frame']:.1f} host API launches a frame, "
+                      f"{p['device_kernels_per_frame']:.1f} device kernels a frame, {p['device_ms_per_frame']:.2f} ms "
+                      f"device time a frame of {p['wall_ms_per_frame']:.2f} ms wall, idle share "
+                      f"{p['idle_share']:.4f}; top device ms a frame {json.dumps(p['top_device_ms_per_frame'])}",
+                      flush=True)
+            out["runs"][name] = {k: v for k, v in rec.items() if k != "frame_ms"}
     if on_gpu and slam is not None and slam.cfg.pipeline_lag > 0:
         g = out["graph"] = graph_replay(slam, frames[-1])
-        if g["captured"]:
-            print(f"CUDA graph of one pipelined step: {g['outputs_equal']} of {g['outputs']} outputs torch.equal "
-                  f"to the eager step's; replay {g['replay_ms']:.3f} ms, eager {g['eager_ms']:.3f} ms "
-                  f"(CUDA events, median of 20)", flush=True)
-        else:
-            print(f"CUDA graph capture of one pipelined step failed at {g['failed_at']}: {g['error']}; "
-                  f"eager {g['eager_ms']:.3f} ms", flush=True)
+        print(f"the System's pipelined program: {g['outputs_equal']} of {g['outputs']} outputs of a replay "
+              f"torch.equal to the eager step's; replay {g['replay_ms']:.3f} ms, eager {g['eager_ms']:.3f} ms "
+              f"(CUDA events, median of 20); captured here {g['captured_here']}", flush=True)
+    if on_gpu:
+        out["depth_programs"] = cs.depth_programs_against_eager(
+            cs.make_rgbd_fixture("cuda", n_frames=cs.PROGRAM_FRAMES), profiled=DEPTH_PROFILED)
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(out, f)

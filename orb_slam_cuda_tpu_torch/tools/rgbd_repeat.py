@@ -21,7 +21,9 @@ With `--trace`, the default-mode runs record a digest of the outputs of
 every call of the map, mapping, loop-closing and solver functions listed
 in TRACED, in call order, and the tool prints the first call whose outputs
 differ between two runs: its function and frame. (The digests copy the
-outputs to the host, which adds to the stage times.)
+outputs to the host, which adds to the stage times, and which a CUDA-graph
+capture refuses: the traced runs go under `programs.eager()`, every
+per-frame stage op by op.)
 
 Everything is also written as JSON to `--out`.
 
@@ -59,7 +61,7 @@ TRACED = {
     "orb_slam_cuda_tpu_torch.slam_map.keyframe_db": ["compute_bow_row", "insert", "erase"],
     "orb_slam_cuda_tpu_torch.solvers.bundle_adjust": ["bundle_adjust"],
     "orb_slam_cuda_tpu_torch.solvers.pose_graph": ["optimize_pose_graph"],
-    "orb_slam_cuda_tpu_torch.engine.tracking": ["full_track_step"],
+    "orb_slam_cuda_tpu_torch.engine.tracking": ["full_track_step", "full_track_step_sync_free"],
     "orb_slam_cuda_tpu_torch.engine.relocalization": ["relocalize"],
     "orb_slam_cuda_tpu_torch.engine.frame": ["build_frame"],
 }
@@ -194,7 +196,7 @@ def main() -> int:
     sys.path.insert(0, os.getcwd())
     import chip_smoke as cs
 
-    from orb_slam_cuda_tpu_torch.engine import Sensor
+    from orb_slam_cuda_tpu_torch.engine import Sensor, programs
 
     card = "cpu" if args.device == "cpu" else subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -212,7 +214,9 @@ def main() -> int:
             recs, traces = [], []
             for r in range(args.runs):
                 if args.trace and mode == "default":
-                    with Tracer() as tracer:
+                    # The digests read outputs back, which a CUDA-graph
+                    # capture refuses: the traced runs go op by op.
+                    with Tracer() as tracer, programs.eager():
                         slam, rec = run_once(cs, cfg, frames, gt_poses, args.device, tracer)
                     traces.append(tracer.log)
                 else:

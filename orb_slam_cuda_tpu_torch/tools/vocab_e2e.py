@@ -25,7 +25,9 @@ Per vocabulary it prints one JSON line: the JAX tool's fields (metric,
 n_words, frames, tracked_ratio, keyframes, loops_closed, ate_rmse,
 wall_s), then relocalizations, the FAST kernel's launches in the run,
 fps, the p50 and p99 of the per-frame host time, the mean ms of the
-build_frame, loop_detect and loop_closing stages, and the card's name and
+orb_extract, build_frame, loop_detect and loop_closing stages (on the
+card orb_extract is the frame program, extraction and frame build in one
+CUDA graph, and build_frame is not timed apart), and the card's name and
 power limit. On the card a run whose FAST launches differ from its frames
 did not run on the kernel, and the tool exits non-zero.
 
@@ -144,6 +146,7 @@ def run(vocab, tag: str, n_frames: int = N_FRAMES, device="cuda") -> dict:
         "render_s": round(render_s, 2),
         "render_device": f"{dev.type} ({'the card' if on_card else 'the host'})",
         "stage_ms": {
+            "orb_extract": _stage_mean(slam.timer, "times.csv", "orb_extract"),
             "build_frame": _stage_mean(slam.timer, "times.csv", "build_frame"),
             "loop_detect": _stage_mean(slam.timer, "timesMapping.csv", "loop_detect"),
             "loop_closing": _stage_mean(slam.timer, "timesMapping.csv", "loop_closing"),

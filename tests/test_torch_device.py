@@ -15,17 +15,22 @@ and powermon reads the card's bytes in use; the System at
 `pipeline_lag=3` tracks the orbit on the card with one launch a frame, one
 more pipelined step runs under `torch.cuda.set_sync_debug_mode("error")`
 without raising, and a local BA on its final map, solved twice, gives
-torch.equal results. Marked
+torch.equal results. The System with its per-frame programs replayed as
+CUDA graphs equals the same System under `programs.eager()` byte for
+byte at lag 0 and at lag 3 (strict), one launch a frame in each, and a
+program that reads a value back fails its capture with CaptureError. Marked
 `cuda`; imports no JAX, so it runs with
 
     python -m pytest -o addopts="" --noconftest -p no:cacheprovider -q -m cuda tests/test_torch_device.py
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
 
-from orb_slam_cuda_tpu_torch.engine import System, SystemConfig
+from orb_slam_cuda_tpu_torch.engine import System, SystemConfig, programs
 from orb_slam_cuda_tpu_torch.engine.loop_closing import LoopCloser
 from orb_slam_cuda_tpu_torch.geometry.camera import Camera
 from orb_slam_cuda_tpu_torch.ops import fast_kernel
@@ -128,6 +133,58 @@ def test_pipelined_step_does_not_synchronize(pipelined_on_card):
         torch.cuda.set_sync_debug_mode(0)
     copied.synchronize()
     assert bool(torch.isfinite(host).all()) and carry.ref_kf.device.type == "cuda"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lag", [0, 3])
+def test_graphed_system_equals_eager_on_card(lag):
+    """The orbit through the System twice: under programs.eager(), then
+    with its per-frame programs replayed as CUDA graphs. Trajectories
+    byte-equal, one FAST launch a frame in each run, no capture in the
+    eager run, and every call of a program after its capture a replay. At
+    lag 3 both retire frames at exactly the lag, so host timing cannot
+    part them."""
+    _need_card()
+    poses, images = _orbit()
+    runs = {}
+    for mode in ("eager", "graphed"):
+        fast_kernel.launches = 0
+        with programs.eager() if mode == "eager" else contextlib.nullcontext():
+            slam = System(SystemConfig(camera=Camera.create(**CAM), **dict(CFG, pipeline_lag=lag)))
+            slam._readback_ready = lambda entry: False
+            for i, img in enumerate(images):
+                slam.track_monocular(img, i * 0.1)
+            traj = slam.get_trajectory()
+        runs[mode] = traj, fast_kernel.launches, slam.program_stats()
+    (t_e, n_e, s_e), (t_g, n_g, s_g) = runs["eager"], runs["graphed"]
+    print(f"lag {lag}: graphed {s_g}")
+    assert n_e == n_g == len(images)
+    assert [(t, ok) for t, _, ok in t_e] == [(t, ok) for t, _, ok in t_g]
+    for (_, a, _), (_, b, _) in zip(t_e, t_g):
+        assert (a is None and b is None) or np.asarray(a).tobytes() == np.asarray(b).tobytes()
+    assert all(v["captures"] == v["replays"] == 0 for k, v in s_e.items() if k != "pool_bytes")
+    step = "pipe" if lag else "track"
+    assert s_g[step]["captures"] >= 1 and s_g[step]["replays"] >= 1 and s_g["pool_bytes"] > 0
+    if lag == 0:  # every frame goes through the frame program
+        assert s_g["frame"]["captures"] + s_g["frame"]["replays"] == len(images)
+
+
+@pytest.mark.cuda
+def test_failed_capture_raises_naming_the_op():
+    """A program that reads a value back runs eagerly at its first call,
+    then its capture fails: CaptureError names the op, nothing falls back,
+    and a later program still captures and replays."""
+    _need_card()
+    prog = programs.Program(lambda x: x * float(x.sum()), "reads_back")
+    x = torch.ones(4, device="cuda")
+    with pytest.raises(programs.CaptureError, match="_local_scalar_dense"):
+        prog(x)
+    assert prog.stats()["captures"] == 0
+    # The failure leaves nothing behind: the next program captures and replays.
+    good = programs.Program(lambda t: t * 2.0, "doubles")
+    for v in (1.0, 3.0):
+        assert torch.equal(good(torch.full((4,), v, device="cuda")), torch.full((4,), 2 * v, device="cuda"))
+    assert good.stats()["captures"] == 1 and good.stats()["replays"] == 1
 
 
 @pytest.mark.cuda

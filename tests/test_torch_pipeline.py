@@ -15,7 +15,9 @@ and the carry's undistorted keypoints (float32 arithmetic that XLA fuses
 its own way) within 1e-4; visibility counters within 1e-5.
 The port's sync-free step equals its synchronous `full_track_step`
 exactly in every case, and queues the whole frame without an op that
-reads a value back to the host.
+reads a value back to the host; so do the System's other per-frame
+programs (the monocular, stereo and RGB-D frames and the lag-0 tracking
+step), which the card captures as CUDA graphs.
 
 The System: `pipeline_lag=2` on the 40-frame orbit through both packages
 with strict lag on both sides (nothing retires before two frames are in
@@ -208,6 +210,40 @@ def test_pipelined_step_reads_nothing_back(snapshot):
             lambda f: tbuild_frame(f, snapshot["tcam"], tvoc), snapshot["tcam"], sf, 15.0)
     assert not spy.hits, sorted(set(spy.hits))
     assert res.host_vec.shape == (41,) and carry.ref_kf.shape == ()
+
+
+@pytest.mark.parametrize("program", ["frame", "track", "stereo_frame", "rgbd_frame"])
+def test_lag0_programs_read_nothing_back(snapshot, program):
+    """The System's other per-frame programs, as the card captures them:
+    the monocular frame (extraction and frame build), the lag-0 tracking
+    step with its tensor inputs (poses, reference keyframe, min_obs,
+    th_depth, vo_th_depth), and the stereo and RGB-D frames (both
+    extractions and the stereo match; extraction and the depth lookup)."""
+    sensor = {"stereo_frame": Sensor.STEREO, "rgbd_frame": Sensor.RGBD}.get(program, Sensor.MONOCULAR)
+    cam = Camera.create(**CAM, bf=0.0 if sensor == Sensor.MONOCULAR else 40.0)
+    slam = System(SystemConfig(camera=cam, sensor=sensor, **CFG), device="cpu")
+    image = snapshot["images"][False]
+    img = slam.extractor.upload(image)
+    if program == "frame":
+        args = (img,)
+    elif program == "stereo_frame":
+        args = (img, slam.extractor.upload(np.ascontiguousarray(np.roll(image, -8, axis=1))))
+    elif program == "rgbd_frame":
+        args = (img, torch.full((H, W), 5, dtype=torch.int32))
+    else:
+        _, _, _, tfeats, tcarry = _case(snapshot, "widened")
+        last = (tcarry.uv, tcarry.oct, tcarry.ang, tcarry.bip, tcarry.mp, tcarry.depth)
+        args = (snapshot["tstate"], snapshot["tbuild"](tfeats), tcarry.vel @ tcarry.pose, tcarry.pose, last,
+                tcarry.ref_kf, torch.tensor(snapshot["min_obs"]), torch.tensor(0.0), torch.tensor(0.0))
+    fn = getattr(slam, f"_{program}_fn")
+    spy = _SyncSpy()
+    with spy:
+        out = fn(*args)
+    assert not spy.hits, sorted(set(spy.hits))
+    if program == "track":
+        assert out.host_vec.shape == (41,)
+    else:
+        assert out.uv.shape == (slam.cfg.n_features, 2)
 
 
 def test_track_carry_converts(snapshot):
