@@ -4,7 +4,9 @@
 Phases, each printing its own lines:
   1. device check: a CUDA device is required; prints the card's name and
      power limit as nvidia-smi reports them;
-  2. build: compiles the hand-written kernel from csrc/ with nvcc;
+  2. build: compiles the two hand-written kernels from csrc/ with nvcc,
+     one process each, started together (fast_corners.cu and
+     triangulate_dlt.cu);
   3. kernel against plain: both entry points of the FAST kernel at the 8
      pyramid shapes of a rendered 1241x376 frame, at the 8 of a rendered
      640x480 frame and on uniform noise,
@@ -33,19 +35,38 @@ Phases, each printing its own lines:
      `build_frame`'s time on that vocabulary beside the 512-word synthetic
      one. Then one more pipelined step, after that warm-up, runs under
      torch.cuda.set_sync_debug_mode("error"): it must not synchronize;
+  5a. the DLT kernel (csrc/triangulate_dlt.cu, the mapper's triangulation)
+     on real inputs: the orbit map's last keyframe against its best
+     covisible neighbour, all 2000 features, through the mapper's whole
+     triangulation once with the kernel and once with its plain version
+     (float32 `eigh`): gated on the max relative error of the points both
+     accept (1e-2; against float64 `eigh` 1e-4) and on the share of
+     matched points whose gate parts (2%); prints the device time warm
+     and as called, the plain version's time and the bound;
   5b. repeatability: a local BA on the orbit's final map and an
      essential-graph solve on a 256-keyframe ring with a drifted loop
-     edge, each run twice on the same inputs on the card: torch.equal;
+     edge, each run twice under programs.eager(), then as a program (the
+     capturing call and two replays of its CUDA graph): all torch.equal;
+     the times of each call show what a capture costs (the System runs
+     the essential-graph solve eagerly: a path closes one or two loops);
   5c. programs: on the card every path runs its per-frame stages as
      captured CUDA graphs (engine/programs.py). The orbit at lag 0 (all
      108 frames), the first 30 stereo pairs of phase 7's circuit and the
      first 30 RGB-D frames of phase 8's, each through two new Systems:
      under programs.eager() and graphed. Gated on every frame's tracking
      host vector and the trajectories byte-equal, FAST launches equal to
-     the extracted images in each run, no capture or replay in the eager
-     run, and one frame-stage program call a frame in the graphed one;
-     prints each run's captures, replays, capture seconds, graph pool and
-     peak reserved memory and host ms a frame;
+     the extracted images in each run, the DLT launches equal in both, no
+     capture or replay in the eager run, one frame-stage program call a
+     frame in the graphed one, every keyframe dispatched to the mapper as
+     one call of its dispatch program, where the policy inserted two
+     keyframes or more, the keyframe programs (insertion, depth points,
+     the mapper's dispatch, BA round 2 and erase, loop detection,
+     global-BA chunks) replayed, and where the mapper took two keyframes
+     or more (the stereo and RGB-D cuts; the orbit's takes one), its
+     dispatch replayed: a later keyframe's slot, slot matrix and
+     probation set through the first one's graph; prints each run's
+     captures, replays, capture seconds per program, graph pool and peak
+     reserved memory and host ms a frame;
   6. loop path: the 340-frame KITTI-scale circuit (KITTI00-02 camera,
      2000 features, 1.3 laps of radius 22 m in a 12-wall room with 40
      billboards), rendered on the card, with 3 blank frames at frame 100;
@@ -102,20 +123,26 @@ default. The float segment sums of the solvers and the map statistics
 add in a fixed order (ops/segsum.py), so a run on one card repeats bit
 for bit (tools/rgbd_repeat.py in the package checks it on the RGB-D
 frames); a run on another card or host can still part from it, and every
-gate is on this one run. The line before the last is the kernel table as JSON: the kernel
-of the main path with its launches summed over all paths (one per
-extracted image). The line before that holds the same numbers for
-fast_score_pair, the entry point the paths do not call. The last line is
-the device JSON. Any failure raises and exits non-zero without them.
-Every path prints its programs' captures and replays (each frame runs one
-frame-stage program: the monocular, stereo or RGB-D frame, or the
-pipelined step; gated), the graph pool and the peak memory reserved.
+gate is on this one run. The line before the last is the kernel table as
+JSON: the FAST kernel with its launches summed over all paths (one per
+extracted image) and the DLT kernel with its launches summed over all
+paths (the initializer's and the mapper's triangulations; every path
+whose mapper dispatched a keyframe must have launched it). The line
+before that holds the same numbers for fast_score_pair, the entry point
+the paths do not call. The last line is the device JSON. Any failure
+raises and exits non-zero without them. Every path prints its programs'
+captures, replays and capture seconds (each frame runs one frame-stage
+program: the monocular, stereo or RGB-D frame, or the pipelined step;
+gated; keyframes run the keyframe programs), the graph pool, the peak
+memory reserved and the timesMapping.csv means (`local_mapping`,
+`local_ba2`, `loop_pose_graph`, `gba_chunk` among them).
 
 Usage: python3 chip_smoke.py   (from the repository root; needs one GPU)
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -162,6 +189,26 @@ OPS_TAIL = {"fast_score_pair": 2, "fast_corners_pyramid": 16}
 # Bytes a pixel: the image read once, each output written once.
 BYTES_PER_PIXEL = {"fast_score_pair": 12, "fast_corners_pyramid": 8}
 KERNEL_SOURCE = "orb_slam_cuda_tpu_torch/csrc/fast_corners.cu"
+DLT_SOURCE = "orb_slam_cuda_tpu_torch/csrc/triangulate_dlt.cu"
+# The least work of the function a point, whatever the kernel does (its
+# double arithmetic and 8 sweeps are its own choice): A (16 products, 16
+# differences), the 10 entries of the symmetric A^T A (4 products and 3
+# sums each), 5 cyclic Jacobi sweeps of 6 rotations on the upper triangle
+# (the angle 13; the pivot pair 4; the other two rows' pairs 2 x 2 x 3;
+# the eigenvector columns 4 x 2 x 3: 53), the smallest of 4 and the
+# division by w (7); at float32's rate, since the function is a float32
+# DLT held to its float32 plain version. Bytes: both image points read
+# (16 B), the point written (12 B); the two 3x4 matrices (96 B) once.
+OPS_DLT_POINT = 32 + 70 + 5 * 6 * 53 + 7
+BYTES_DLT_POINT, BYTES_DLT_FIXED = 28, 96
+# Against its plain version (float32 `eigh`, whose rounding the kernel's
+# double Jacobi does not share) on the points both accept: the relative
+# error of a point; against the plain version in float64 (the same
+# function computed exactly but for the float32 inputs and output).
+DLT_RTOL_F32, DLT_RTOL_F64 = 1e-2, 1e-4
+# The share of matched points whose triangulation gate may part between
+# the kernel and float32 `eigh` (a point on a threshold).
+DLT_GATE_SHARE = 0.02
 ATE_GATE = 0.24  # 2% of the 12 m near plane
 # The JAX reference System inserts 3 keyframes on this fixture and
 # configuration (2 at initialization, 1 by the keyframe policy).
@@ -202,6 +249,10 @@ LAUNCH_APIS = {"cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuL
 # Each frame runs exactly one of these programs (the pipelined step holds
 # the frame's extraction).
 FRAME_PROGRAMS = ("frame", "pipe", "stereo_frame", "rgbd_frame")
+# The keyframe path's programs (engine/system.py, local_mapping.py,
+# loop_closing.py).
+KEYFRAME_PROGRAMS = ("kf_insert", "depth_points", "map_dispatch", "map_ba2", "map_erase", "loop_detect",
+                     "gba_chunk")
 
 
 def log(*a):
@@ -297,10 +348,142 @@ def phase_device():
 
 
 def phase_build():
-    from orb_slam_cuda_tpu_torch.ops import fast_kernel
+    """Both kernels' nvcc builds, started together."""
+    from concurrent.futures import ThreadPoolExecutor
 
-    path, seconds = fast_kernel.build()
-    log(f"build: {KERNEL_SOURCE} -> {path} in {seconds:.2f} s")
+    from orb_slam_cuda_tpu_torch.ops import dlt_kernel, fast_kernel
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        builds = [pool.submit(k.build) for k in (fast_kernel, dlt_kernel)]
+        results = [b.result() for b in builds]
+    for source, (path, seconds) in zip((KERNEL_SOURCE, DLT_SOURCE), results):
+        log(f"build: {source} -> {path} in {seconds:.2f} s")
+    log(f"build: both in {time.perf_counter() - t0:.2f} s")
+
+
+def reset_launches():
+    """Every kernel's launch count to 0, just before a path is driven."""
+    from orb_slam_cuda_tpu_torch.ops import dlt_kernel, fast_kernel
+
+    fast_kernel.launches = 0
+    dlt_kernel.launches = 0
+
+
+# DLT kernel launches of each path's run, read just after it is driven.
+DLT_LAUNCHES = {}
+
+
+def note_dlt_launches(name: str, slam=None) -> int:
+    """Record the DLT launches of path `name` since reset_launches(); on
+    the card, a path whose mapper dispatched a keyframe (or, with `slam`
+    None, that initialized) must have launched it."""
+    from orb_slam_cuda_tpu_torch.ops import dlt_kernel
+
+    DLT_LAUNCHES[name] = n = dlt_kernel.launches
+    return n
+
+
+def mapping_dispatches(slam) -> int:
+    return sum(1 for r in slam.timer.rows["timesMapping.csv"] if r[1] == "local_mapping")
+
+
+def dlt_gate(name: str, slam) -> dict:
+    """Record the path's DLT launches and gate them: on the card a path
+    whose mapper dispatched a keyframe launched the kernel."""
+    n, dispatches = note_dlt_launches(name), mapping_dispatches(slam)
+    log(f"{name}: dlt launches {n} ({dispatches} keyframes dispatched to the mapper)")
+    if slam.device.type != "cuda" or dispatches == 0:
+        return {}
+    return {f"dlt launches > 0 ({dispatches} keyframes dispatched)": n > 0}
+
+
+def phase_dlt_kernel(slam):
+    """The DLT kernel on real triangulation inputs: the orbit's last
+    keyframe against its best covisible neighbour, as the mapper's
+    triangulation gives them to the kernel (all of the keyframe's
+    features; unmatched ones paired with feature 0 and gated out after).
+    The whole triangulation runs twice, with the kernel and with its plain
+    version (float32 `eigh`): the max relative error of the points both
+    accept, the count whose gate parts, and against the plain version in
+    float64. Times, the bound, and the kernel-table row (without
+    `launches`)."""
+    import torch
+
+    from orb_slam_cuda_tpu_torch.engine import local_mapping
+    from orb_slam_cuda_tpu_torch.geometry import triangulate
+    from orb_slam_cuda_tpu_torch.ops import dlt_kernel
+    from orb_slam_cuda_tpu_torch.slam_map import ops as map_ops
+
+    kf = slam.kf_order[-1]
+    nb = int(map_ops.top_covisible(slam.state.covis[kf], 1)[0])
+    m = slam.mapper
+    seen, kernel = [], dlt_kernel.triangulate_dlt
+
+    def recorder(*args):
+        seen.append(args)
+        return kernel(*args)
+
+    def run(fn):
+        dlt_kernel.triangulate_dlt = fn
+        try:
+            return local_mapping.triangulate_with_neighbor(slam.state, kf, nb, slam.cam, m.scale_factors,
+                                                           m.level_sigma2)
+        finally:
+            dlt_kernel.triangulate_dlt = kernel
+
+    launches0 = dlt_kernel.launches
+    got = run(recorder)
+    want = run(triangulate.triangulate_dlt_plain)
+    P1, P2, xy1, xy2 = seen[0]
+    X64 = triangulate.triangulate_dlt_plain(P1.double(), P2.double(), xy1.double(), xy2.double())
+    torch.cuda.synchronize()
+    both = got.ok & want.ok
+    matched = int((want.feat_nb >= 0).sum())
+
+    def rel(a, b):
+        d = torch.linalg.norm(a.double() - b.double(), dim=-1) / torch.clamp(torch.linalg.norm(b.double(), dim=-1),
+                                                                             min=1e-12)
+        return float(d[both].max()) if bool(both.any()) else 0.0
+
+    err32, err64 = rel(got.xyz, want.xyz), rel(got.xyz, X64)
+    parted = int((got.ok != want.ok).sum())
+    n = xy1.shape[0]
+    log(f"triangulate_dlt on keyframe {kf} against neighbour {nb}: {n} points, {matched} matched, "
+        f"{int(both.sum())} accepted by both; max relative error on those {err32:.3e} against float32 eigh "
+        f"(tolerance {DLT_RTOL_F32}), {err64:.3e} against float64 eigh (tolerance {DLT_RTOL_F64}); "
+        f"{parted} gates part (tolerance {DLT_GATE_SHARE} of {matched})")
+    check_gates("triangulate_dlt kernel", {
+        "some points accepted": bool(both.any()),
+        f"max relative error <= {DLT_RTOL_F32} against float32 eigh": err32 <= DLT_RTOL_F32,
+        f"max relative error <= {DLT_RTOL_F64} against float64 eigh": err64 <= DLT_RTOL_F64,
+        f"gates part on <= {DLT_GATE_SHARE} of matched points": parted <= DLT_GATE_SHARE * max(matched, 1),
+    })
+
+    def kern():
+        return dlt_kernel.triangulate_dlt(P1, P2, xy1, xy2)
+
+    def plain():
+        return triangulate.triangulate_dlt_plain(P1, P2, xy1, xy2)
+
+    warm = device_median_ms(kern, inner=10)
+    called = cuda_median_ms(kern)
+    plain_ms = cuda_median_ms(plain)
+    dlt_kernel.launches = launches0  # the comparison's launches are not the path's
+    by_bytes = (n * BYTES_DLT_POINT + BYTES_DLT_FIXED) / PEAK_BYTES_PER_S * 1e3
+    by_ops = n * OPS_DLT_POINT / PEAK_FP32_OPS_PER_S * 1e3
+    bound_ms, bound_by = max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations")
+    log(f"triangulate_dlt per call ({n} points): device {warm:.4f} ms warm (10 calls a pair of events); as "
+        f"called {called:.4f} ms; plain (float32 eigh) {plain_ms:.4f} ms; bound {bound_ms:.5f} ms by {bound_by} "
+        f"({by_bytes:.5f} by bytes, {by_ops:.5f} by {OPS_DLT_POINT} FP32 operations a point); share of bound "
+        f"reached {bound_ms / warm:.3f}; library call: none (no one PyTorch call triangulates, and eigh reads "
+        f"back)")
+    return {"name": "triangulate_dlt", "route": "cuda", "source": DLT_SOURCE,
+            "replaces": "orb_slam_cuda_tpu/geometry/triangulate.py:37",
+            "max_abs_err": float((got.xyz - want.xyz)[both].abs().max()) if bool(both.any()) else 0.0,
+            "max_rel_err": err32, "max_rel_err_f64": err64, "gates_parted": parted, "points": n,
+            "ms": warm, "as_called_ms": called, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
 
 
 def kitti_camera():
@@ -538,14 +721,16 @@ def orbit_config(cam, lag=PIPELINE_LAG):
 
 
 def program_summary(name, slam) -> int:
-    """Print the System's per-frame programs (captures, replays, capture
-    seconds), the shared graph pool and the peak memory reserved since the
-    last reset. Returns the calls of the frame-stage programs."""
+    """Print the System's programs, per-frame and keyframe (captures,
+    replays, capture seconds each), the shared graph pool and the peak
+    memory reserved since the last reset. Returns the calls of the
+    frame-stage programs."""
     import torch
 
     st = slam.program_stats()
     progs = {k: v for k, v in st.items() if k != "pool_bytes"}
-    used = [f"{k} {v['captures']} + {v['replays']}" for k, v in progs.items() if v["captures"] or v["replays"]]
+    used = [f"{k} {v['captures']} + {v['replays']} ({v['capture_s']:.2f} s)" for k, v in progs.items()
+            if v["captures"] or v["replays"]]
     peak = torch.cuda.max_memory_reserved() if slam.device.type == "cuda" else 0
     log(f"{name} programs (captures + replays): {', '.join(used) or 'none'}; "
         f"{sum(v['captures'] for v in progs.values())} captures in "
@@ -635,7 +820,7 @@ def phase_main_path(cam, poses, frames, device=None, vocab=None):
             f"on the {small.n_words}-word synthetic one")
     frame_ms = []
     reset_peak(slam.device)
-    fast_kernel.launches = 0  # count this path's launches only
+    reset_launches()  # count this path's launches only
     t_all = time.perf_counter()
     for i, img in enumerate(host_frames):
         t0 = time.perf_counter()
@@ -647,6 +832,7 @@ def phase_main_path(cam, poses, frames, device=None, vocab=None):
     flush_ms = (time.perf_counter() - t0) * 1e3
     total_s = time.perf_counter() - t_all
     launches = fast_kernel.launches
+    dlt = note_dlt_launches("orbit")
 
     ts, est = camera_centers(slam.get_trajectory())
     gt_by_t = {round(i * 0.1, 6): np.linalg.inv(T)[:3, 3] for i, T in enumerate(poses)}
@@ -661,7 +847,8 @@ def phase_main_path(cam, poses, frames, device=None, vocab=None):
     log(f"main path (pipeline_lag {cfg.pipeline_lag}, loop closing on): {n} frames in {total_s:.1f} s; "
         f"{status}; tracked_ratio {slam.tracked_ratio():.4f}, keyframes {slam.stats.n_keyframes} "
         f"(live {len(slam.kf_order)}), points {int(st.mp_valid.sum())}, lost {slam.stats.n_lost}, "
-        f"relocalized {slam.stats.n_reloc}, ATE {ate:.4f} m, fast launches {launches}")
+        f"relocalized {slam.stats.n_reloc}, ATE {ate:.4f} m, fast launches {launches}, dlt launches {dlt} "
+        f"({mapping_dispatches(slam)} keyframes dispatched to the mapper)")
     log(f"frames {MEASURE_FROM}-{n - 1}: {fps:.2f} fps (the final flush of {flush_ms:.2f} ms included), "
         f"p50 {p50:.2f} ms, p99 {p99:.2f} ms, max {window.max():.2f} ms")
     for csv in ("times.csv", "timesTracking.csv"):
@@ -683,6 +870,7 @@ def phase_main_path(cam, poses, frames, device=None, vocab=None):
         f"keyframes >= {MIN_KEYFRAMES}": slam.stats.n_keyframes >= MIN_KEYFRAMES,
         "tracking never failed (lost 0, relocalized 0)": slam.stats.n_lost == 0 and slam.stats.n_reloc == 0,
         f"fast launches == {want_launches}": launches == want_launches,
+        "dlt launched (the initializer and the mapper triangulate)": dlt > 0 or not on_gpu,
         f"map tensors on {slam.device} (off: {off_device})": not off_device,
         f"ATE <= {ATE_GATE}": ate <= ATE_GATE,
         "last pose finite": pose is not None and bool(np.isfinite(pose).all()),
@@ -721,7 +909,7 @@ def graphed_against_eager(name, make, track, frames, dt, want_launches, profiled
     from torch.profiler import ProfilerActivity, profile
 
     from orb_slam_cuda_tpu_torch.engine import programs
-    from orb_slam_cuda_tpu_torch.ops import fast_kernel
+    from orb_slam_cuda_tpu_torch.ops import dlt_kernel, fast_kernel
 
     runs = {}
     timed = len(frames) - profiled
@@ -729,7 +917,7 @@ def graphed_against_eager(name, make, track, frames, dt, want_launches, profiled
         slam = make()
         vecs = _host_vector_log(slam)
         reset_peak(slam.device)
-        fast_kernel.launches = 0
+        reset_launches()
         frame_ms = []
         with programs.eager() if mode == "eager" else contextlib.nullcontext():
             for i, frame in enumerate(frames[:timed]):
@@ -755,22 +943,40 @@ def graphed_against_eager(name, make, track, frames, dt, want_launches, profiled
         log(f"programs, {name}, {mode}: {len(frames)} frames, tracked {slam.tracked_ratio():.4f}, keyframes "
             f"{slam.stats.n_keyframes}; frames 0-{timed - 1}: host {ms.mean():.2f} ms a frame "
             f"({1e3 / ms.mean():.2f} fps), p50 {p50:.2f}, p99 {p99:.2f} ms{profiled_line}; "
-            f"fast launches {fast_kernel.launches}")
+            f"fast launches {fast_kernel.launches}, dlt launches {dlt_kernel.launches}")
         calls = program_summary(f"programs, {name}, {mode},", slam)
         stats = slam.program_stats()
+        keyframe_programs = {k: v for k, v in stats.items() if k in KEYFRAME_PROGRAMS}
         runs[mode] = dict(vecs=vecs, traj=traj, launches=fast_kernel.launches, calls=calls,
+                          dlt=dlt_kernel.launches, dispatches=mapping_dispatches(slam),
+                          policy_keyframes=slam.stats.n_keyframes - (1 if slam.cfg.sensor.value else 2),
+                          kf_calls=sum(v["captures"] + v["replays"] for v in keyframe_programs.values()),
+                          kf_replays=sum(v["replays"] for v in keyframe_programs.values()),
                           captured=sum(v["captures"] + v["replays"] for k, v in stats.items() if k != "pool_bytes"),
                           track_replays=stats["track"]["replays"], host_ms=float(ms.mean()), p50_ms=float(p50),
                           p99_ms=float(p99), programs=stats, line=profiled_line)
     e, g = runs["eager"], runs["graphed"]
-    check_gates(f"programs, {name}", {
+    gates = {
         f"host vectors byte-equal ({len(g['vecs'])} frames)": e["vecs"] == g["vecs"] and len(g["vecs"]) > 0,
         "trajectories byte-equal": e["traj"] == g["traj"],
         f"fast launches == {want_launches} in each run": e["launches"] == g["launches"] == want_launches,
+        f"dlt launches equal in both runs ({e['dlt']}, {g['dlt']})": e["dlt"] == g["dlt"],
         "no capture or replay under programs.eager()": e["captured"] == 0,
         f"graphed: frame-stage program calls == {len(frames)}": g["calls"] == len(frames),
         "graphed: the tracking program replayed": g["track_replays"] > 0,
-    })
+        f"graphed: {g['dispatches']} keyframes dispatched to the mapper, each as a program call":
+            g["programs"]["map_dispatch"]["captures"] + g["programs"]["map_dispatch"]["replays"] == g["dispatches"],
+    }
+    if g["policy_keyframes"] > 0:  # the mapper triangulated
+        gates["dlt launched"] = g["dlt"] > 0
+    if g["policy_keyframes"] > 1:  # the keyframe programs were called again with a captured key
+        gates[f"graphed: keyframe programs replayed ({g['policy_keyframes']} keyframes inserted by the "
+              f"policy)"] = g["kf_replays"] > 0
+    if g["dispatches"] > 1:  # a later keyframe replays the dispatch on its own slot, points and probation
+        dispatch = g["programs"]["map_dispatch"]
+        gates[f"graphed: the mapper's dispatch replayed ({dispatch['captures']} + {dispatch['replays']} for "
+              f"{g['dispatches']} keyframes), byte-equal to eager above"] = dispatch["replays"] > 0
+    check_gates(f"programs, {name}", gates)
     return {mode: {k: v for k, v in r.items() if k not in ("vecs", "traj")} for mode, r in runs.items()}
 
 
@@ -841,10 +1047,12 @@ def phase_repeatability(slam):
     """One local BA (the last keyframe's window of the orbit's final map,
     round 2's iterations) and one essential-graph solve (a drifted ring of
     RING_KEYFRAMES, 5 Gauss-Newton steps of the loop closer's 15), each run
-    twice on the same inputs on the card: the two results must be
-    torch.equal."""
+    twice eagerly (programs.eager()) and then as a program: its first call
+    (eager, then the capture) and two replays of the graph. All four
+    results must be torch.equal."""
     import torch
 
+    from orb_slam_cuda_tpu_torch.engine import programs
     from orb_slam_cuda_tpu_torch.engine.local_mapping import gather_local_ba_problem
     from orb_slam_cuda_tpu_torch.solvers import bundle_adjust as ba
     from orb_slam_cuda_tpu_torch.solvers import pose_graph
@@ -854,23 +1062,26 @@ def phase_repeatability(slam):
                                             n_local=m.lba_local, n_fixed=m.lba_fixed, n_points=m.lba_points)
     graph = ring_pose_graph(RING_KEYFRAMES, slam.device)
     runs = {}
-    for name, solve in (("local BA", lambda: ba.bundle_adjust(problem, slam.cam, lm_iters=10, cg_iters=15)),
-                        ("essential graph", lambda: pose_graph.optimize_pose_graph(graph, gn_iters=5,
-                                                                                   cg_iters=30))):
-        t0 = time.perf_counter()
-        a = solve()
-        _synchronize(slam.device)
-        t1 = time.perf_counter()
-        b = solve()
-        _synchronize(slam.device)
-        same = all(torch.equal(x, y) for x, y in zip(a, b))
-        runs[name] = same
-        log(f"repeatability, {name}: two solves on the same inputs {'torch.equal' if same else 'DIFFER'}; "
-            f"{(t1 - t0) * 1e3:.2f} ms and {(time.perf_counter() - t1) * 1e3:.2f} ms")
+    for name, fn, arg in (("local BA", lambda p: ba.bundle_adjust(p, slam.cam, lm_iters=10, cg_iters=15), problem),
+                          ("essential graph", lambda g: pose_graph.optimize_pose_graph(g, gn_iters=5, cg_iters=30),
+                           graph)):
+        program = programs.Program(fn, f"repeatability {name}")
+        ms, outs = [], []
+        for mode in ("eager", "eager", "capture", "replay", "replay"):
+            t0 = time.perf_counter()
+            with programs.eager() if mode == "eager" else contextlib.nullcontext():
+                outs.append(program(arg))
+            _synchronize(slam.device)
+            ms.append(f"{mode} {(time.perf_counter() - t0) * 1e3:.2f} ms")
+        same = all(torch.equal(x, y) for out in outs[1:] for x, y in zip(outs[0], out))
+        replayed = program.stats()["replays"] == 2
+        runs[name] = same and replayed
+        log(f"repeatability, {name}: two eager solves, the program's capture and two replays on the same inputs "
+            f"{'torch.equal' if same else 'DIFFER'} (replays {program.stats()['replays']}); " + ", ".join(ms))
     log(f"repeatability: local BA of {int(problem.obs_valid.sum())} observations, "
         f"{int(problem.pt_valid.sum())} points, {problem.cam_pose.shape[0]} cameras; essential graph of "
         f"{RING_KEYFRAMES} keyframes and {graph.edge_i.shape[0]} edges")
-    check_gates("repeatability", {f"{k} repeats bit for bit": v for k, v in runs.items()})
+    check_gates("repeatability", {f"{k} repeats bit for bit, eager and graphed": v for k, v in runs.items()})
 
 
 def circuit_scene():
@@ -980,12 +1191,13 @@ def drive(slam, track, frames, dt):
     launch count set to 0 just before and read just after. Returns the
     poses, the frame times in ms, the relocalization calls as (frame,
     accepting stage, tracked), the share of valid features with a depth per
-    tracked frame, the seconds and the launches."""
+    tracked frame, the seconds and the FAST launches (the DLT launches are
+    left in dlt_kernel.launches)."""
     from orb_slam_cuda_tpu_torch.ops import fast_kernel
 
     poses, frame_ms, reloc_calls, depth_share = [], [], [], []
     reset_peak(slam.device)
-    fast_kernel.launches = 0  # count this path's launches only
+    reset_launches()  # count this path's launches only
     t_all = time.perf_counter()
     for i, frame in enumerate(frames):
         before = dict(slam.reloc_stage_stats)
@@ -1084,6 +1296,7 @@ def phase_loop_path(cam, poses, frames, device=None):
     slam = build_system(circuit_config(cam, Sensor.MONOCULAR), device)
     _, frame_ms, reloc_calls, _, total_s, launches = drive(
         slam, lambda s, img, t: s.track_monocular(img, t), frames, 0.1)
+    dlt = dlt_gate("loop path", slam)
     ate, extent, _, off_device, program_calls = summarize("loop path", slam, poses, 0.1, frame_ms, reloc_calls,
                                                           total_s, launches, with_scale=True)
     status = slam.get_status()
@@ -1103,6 +1316,7 @@ def phase_loop_path(cam, poses, frames, device=None):
         f"fast launches == {want_launches}": launches == want_launches,
         f"map tensors on {slam.device} (off: {off_device})": not off_device,
         "last pose finite": pose is not None and bool(np.isfinite(pose).all()),
+        **dlt,
     }
     check_gates("loop path", gates)
     return launches, slam
@@ -1209,6 +1423,7 @@ def phase_stereo_path(cam, poses, frames, device=None):
     slam = build_system(circuit_config(cam, Sensor.STEREO), device)
     est, frame_ms, reloc_calls, depth_share, total_s, launches = drive(
         slam, lambda s, pair, t: s.track_stereo(pair[0], pair[1], t), frames, 0.1)
+    dlt = dlt_gate("stereo path", slam)
     ate, extent, span, off_device, program_calls = summarize("stereo path", slam, poses, 0.1, frame_ms,
                                                              reloc_calls, total_s, launches, with_scale=False)
     status = slam.get_status()
@@ -1230,6 +1445,7 @@ def phase_stereo_path(cam, poses, frames, device=None):
         f"fast launches == {want_launches}": launches == want_launches,
         f"map tensors on {slam.device} (off: {off_device})": not off_device,
         "last pose finite": pose is not None and bool(np.isfinite(pose).all()),
+        **dlt,
     })
     return launches
 
@@ -1258,6 +1474,7 @@ def phase_rgbd_path(cam, poses, frames, device=None):
 
     slam = build_system(cfg, device)
     est, frame_ms, reloc_calls, depth_share, total_s, launches = drive(slam, track, frames, RGBD_DT)
+    dlt = dlt_gate("rgbd path", slam)
     ate, extent, span, off_device, program_calls = summarize("rgbd path", slam, poses, RGBD_DT, frame_ms,
                                                              reloc_calls, total_s, launches, with_scale=False)
     log(f"rgbd path: pose at frame 0 {est[0] is not None}; valid features with a depth "
@@ -1273,6 +1490,7 @@ def phase_rgbd_path(cam, poses, frames, device=None):
         f"fast launches == {want_launches}": launches == want_launches,
         f"map tensors on {slam.device} (off: {off_device})": not off_device,
         "last pose finite": pose is not None and bool(np.isfinite(pose).all()),
+        **dlt,
     })
 
     # Localization-only probe: the saved map in a new System.
@@ -1333,7 +1551,7 @@ def _cli(argv):
     from orb_slam_cuda_tpu_torch.ops import fast_kernel
 
     err = io.StringIO()
-    fast_kernel.launches = 0  # count this run's launches only
+    reset_launches()  # count this run's launches only
     programs.captures, programs.replays, programs.capture_s = 0, 0, 0.0
     on_card = torch.cuda.is_available()
     reset_peak("cuda" if on_card else "cpu")
@@ -1401,6 +1619,7 @@ def phase_cli_path(device=None):
         os.makedirs(timing)
         launches, lines, run_s = _cli(args + ["--save-tum", traj, "--diag", diag, "--timing-dir", timing,
                                               "--save-map", map_path] + dev_args)
+        dlt = note_dlt_launches("cli path")
         rows = _read_csv(diag)
         ok = [r["state"] == "OK" for r in rows]
         first = ok.index(True) if any(ok) else None
@@ -1419,7 +1638,7 @@ def phase_cli_path(device=None):
             f"{rows[-1]['keyframes']}, relocalizations {rows[-1]['relocs']}; ATE sim(3) {ate:.4f} m over "
             f"{n_scored} frames: {100 * ate / extent:.3f}% of this cut's {extent:.2f} m extent, "
             f"{100 * ate / MONO_TUM_EXTENT:.3f}% of the whole config's {MONO_TUM_EXTENT} m; {extras}; "
-            f"fast launches {launches}")
+            f"fast launches {launches}, dlt launches {dlt}")
         log(f"cli path frames 0-{len(ms) - 1} (stage time a frame, timing CSVs): {len(ms) / (ms.sum() / 1e3):.2f} fps, "
             f"p50 {p50:.2f} ms, p99 {p99:.2f} ms, max {ms.max():.2f} ms; PNG decode {decode_ms:.2f} ms a frame "
             f"(native, {len(rgb)} frames 640x480)")
@@ -1434,6 +1653,7 @@ def phase_cli_path(device=None):
             "tracked >= 0.85 of the frames from the first pose on": tracked_after >= 0.85,
             f"ATE sim(3) <= {CLI_ATE_GATE:.4f} m": ate <= CLI_ATE_GATE,
             f"fast launches == {want} (frames read)": launches == want and len(rows) == CLI_FRAMES,
+            "dlt launched (keyframes inserted)": dlt > 0 or not on_gpu or int(rows[-1]["keyframes"]) < 3,
             "last pose finite": bool(np.isfinite(last).all()),
             "shutdown line printed": any(line.startswith("tracked ") for line in lines),
         })
@@ -1478,7 +1698,8 @@ def _stereo_worker(queue, device, n_frames):
         t0 = time.perf_counter()
         launches = phase_stereo_path(*make_stereo_fixture(device, n_frames),
                                      device=None if device == "cuda" else device)
-        queue.put(dict(launches=launches, seconds=time.perf_counter() - t0, log=out.getvalue()))
+        queue.put(dict(launches=launches, dlt=DLT_LAUNCHES.get("stereo path", 0),
+                       seconds=time.perf_counter() - t0, log=out.getvalue()))
     except BaseException:
         queue.put(dict(error=traceback.format_exc(), log=out.getvalue()))
 
@@ -1525,6 +1746,7 @@ def finish_stereo_path(handle, timeout_s: float = 1000.0):
     if "error" in res:
         raise AssertionError("stereo path failed in its process:\n" + res["error"])
     log(f"stereo path (own process): {res['seconds']:.1f} s")
+    DLT_LAUNCHES["stereo path"] = res["dlt"]
     return res["launches"]
 
 
@@ -1555,6 +1777,7 @@ def main() -> int:
     timed("kernels", phase_extract_launches, frames[0])
     vocab = timed("vocabulary", phase_vocabulary)
     launches, orbit_slam = timed("orbit path", phase_main_path, cam, poses, frames, vocab=vocab)
+    dlt_row = timed("kernels", phase_dlt_kernel, orbit_slam)
     timed("repeatability", phase_repeatability, orbit_slam)
     timed("programs", phase_programs, cam, frames, vocab, rgbd)
     del frames, vocab, orbit_slam
@@ -1579,7 +1802,9 @@ def main() -> int:
     # above, but no path calls it: its row stands apart from the main
     # path's kernel table.
     print(json.dumps({"entry_points_off_the_main_path": [dict(pair_row, launches=0)]}), flush=True)
-    print(json.dumps({"kernels": [dict(pyramid_row, launches=launches)]}), flush=True)
+    log(f"dlt launches by path: {DLT_LAUNCHES}")
+    print(json.dumps({"kernels": [dict(pyramid_row, launches=launches),
+                                  dict(dlt_row, launches=sum(DLT_LAUNCHES.values()))]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -26,11 +26,13 @@ from ..matching import search
 from ..ops import hamming
 from ..slam_map import MapConfig, MapState, keyframe_db
 from ..slam_map import ops as map_ops
+from ..slam_map.state import slot_index, slot_mask
 from ..solvers import bundle_adjust as ba
 from ..solvers import pose_graph, sim3_opt, sim3_solver
 from ..solvers.initializer import default_sampler
 from ..utils.timing import StageTimer
-from . import local_mapping, tracking
+from . import local_mapping, programs, tracking
+from .programs import pow2_bucket
 
 CONSISTENCY_TH = 3
 MIN_SIM3_INLIERS = 20
@@ -83,15 +85,17 @@ def _apply_gba(state: MapState, gba_pose, gba_xyz, kf_apply, pt_apply, chain) ->
     return state._replace(kf_pose=kf_pose, mp_xyz=xyz)
 
 
-def _bow_scores_vs_neighbors(db, state: MapState, kf_slot: int, n_words: int):
+def _bow_scores_vs_neighbors(db, state: MapState, kf_slot, n_words: int):
     """The keyframe's BoW query, its scores, a FRESH covisibility matrix
     (the incremental rows' drift flipped marginal loop funnels in the
     reference), its >= 15-weight neighbours and their minimum score (the
-    loop-candidate floor; 1.0 without neighbours)."""
-    q = keyframe_db.dense_bow(db.word[kf_slot], db.weight[kf_slot], n_words)
+    loop-candidate floor; 1.0 without neighbours). `kf_slot` an int or a
+    slot tensor."""
+    slot = slot_index(kf_slot, state.device)
+    q = keyframe_db.dense_bow(db.word[slot][0], db.weight[slot][0], n_words)
     s = keyframe_db.scores(db, q)
     covis = map_ops.covisibility_matrix(state)
-    neigh = (covis[kf_slot] >= 15) & db.valid
+    neigh = (covis[slot][0] >= 15) & db.valid
     min_score = torch.min(torch.where(neigh, s, torch.full_like(s, float("inf"))))
     min_score = torch.where(torch.isfinite(min_score), min_score, torch.ones_like(min_score))
     return q, s, covis, neigh, min_score
@@ -182,14 +186,6 @@ def loop_group_point_count(state: MapState, cand: int):
     return torch.sum(pts_mask), loop_kfs
 
 
-def pow2_bucket(n: int, lo: int, hi: int) -> int:
-    """Smallest power of two >= n, clamped to [lo, hi]."""
-    b = lo
-    while b < min(n, hi):
-        b *= 2
-    return min(b, hi)
-
-
 def loop_points_projection_gate(state: MapState, kf_cur: int, cand: int, R, t, s, feat_matched,
                                 cam: Camera, scale_factors, loop_kfs, n_pts_bucket: int = 4096):
     """The final acceptance gate: project the loop group's points through
@@ -239,6 +235,39 @@ def loop_points_projection_gate(state: MapState, kf_cur: int, cand: int, R, t, s
     point_match = tracking._bind(N, m.idx, pts, m.idx >= 0).long()
     point_match = torch.where(fm_ok, torch.where(matched_pts >= 0, matched_pts, point_match), point_match)
     return torch.sum(point_match >= 0), point_match
+
+
+def essential_graph_solve(state: MapState, pose_before, ei, ej, loop_pos, S_loop, cand):
+    """The essential graph's Sim3 pose graph: vertices start at the current
+    poses, measurements come from the pre-correction poses `pose_before`,
+    the edge at `loop_pos` (a 0-d tensor) takes the loop's `S_loop`, `cand`
+    (a slot tensor) is held fixed with the invalid keyframes. Points
+    follow their reference keyframe. Reads nothing back. Returns (kf_pose,
+    mp_xyz)."""
+    K = state.kf_valid.shape[0]
+    dev = state.device
+    ones_k = torch.ones((K,), dtype=torch.float32, device=dev)
+    Rm, tm = pose_before[:, :3, :3], pose_before[:, :3, 3]
+    mR, mt, ms = pose_graph.relative_sim3((Rm[ei], tm[ei], ones_k[ei]), (Rm[ej], tm[ej], ones_k[ej]))
+    at = torch.arange(ei.shape[0], device=dev) == loop_pos
+    mR = torch.where(at[:, None, None], S_loop[0], mR)
+    mt = torch.where(at[:, None], S_loop[1], mt)
+    ms = torch.where(at, S_loop[2], ms)
+    problem = pose_graph.PoseGraphProblem(
+        vert_R=state.kf_pose[:, :3, :3], vert_t=state.kf_pose[:, :3, 3], vert_s=ones_k,
+        vert_fixed=slot_mask(cand, K, dev) | ~state.kf_valid, edge_i=ei, edge_j=ej,
+        meas_R=mR, meas_t=mt, meas_s=ms, edge_valid=torch.ones(ei.shape, dtype=torch.bool, device=dev),
+    )
+    R_opt, t_opt, s_opt = pose_graph.optimize_pose_graph(problem, gn_iters=15, cg_iters=30)
+
+    ref = torch.clamp(state.mp_ref_kf, min=0).long()
+    old = state.kf_pose[ref]
+    p_cam = sim3.transform((old[:, :3, :3], old[:, :3, 3], torch.ones_like(state.mp_xyz[:, 0])),
+                           state.mp_xyz)
+    p_new = sim3.transform(sim3.inverse((R_opt[ref], t_opt[ref], s_opt[ref])), p_cam)
+    new_xyz = torch.where(state.mp_valid[:, None], p_new, state.mp_xyz)
+    new_pose = sim3.to_se3((R_opt, t_opt, s_opt))
+    return torch.where(state.kf_valid[:, None, None], new_pose, state.kf_pose), new_xyz
 
 
 def essential_graph_edges(kf_valid, covis_pre, kf_order, loop_edges, loop_pair):
@@ -305,6 +334,13 @@ class LoopCloser:
         self.gba_idx = 0
         self.gba_requested = False
         self.timer = StageTimer(enabled=False)
+        # Device programs (engine/programs.py): the per-keyframe detection
+        # and a global-BA chunk without a mesh. The essential-graph solve
+        # runs eagerly: a path closes a loop once or twice, and capturing
+        # the solve takes several times as long as running it.
+        self._detect_fn = programs.Program(self._detect_program, "loop_detect")
+        self._chunk_fn = programs.Program(self._chunk_program, "gba_chunk")
+        self.programs = (self._detect_fn, self._chunk_fn)
 
     def _stage(self, name: str, state: MapState):
         return self.timer.stage("timesMapping.csv", name, sync=state.device)
@@ -329,12 +365,16 @@ class LoopCloser:
             state = self.finish_global_ba(state, gba, kf_order)
         return state, db
 
-    def _candidates(self, state: MapState, db, kf_slot: int):
-        q, _, covis, neigh, min_score = _bow_scores_vs_neighbors(db, state, kf_slot, self.vocab.n_words)
-        exclude = neigh.clone()
-        exclude[kf_slot] = True
+    def _detect_program(self, state: MapState, db, slot):
+        q, _, covis, neigh, min_score = _bow_scores_vs_neighbors(db, state, slot, self.vocab.n_words)
+        exclude = neigh | slot_mask(slot, neigh.shape[0], neigh.device)
         cand_mask, _ = keyframe_db.detect_candidates(db, q, exclude, covis, min_score=min_score)
         return cand_mask, covis
+
+    def _candidates(self, state: MapState, db, kf_slot: int):
+        """(candidate mask, fresh covisibility) of one keyframe, queued as
+        the detection program; the consistency chain reads them."""
+        return self._detect_fn(state, db, torch.full((), int(kf_slot), dtype=torch.int64, device=state.device))
 
     def dispatch_detect(self, state: MapState, db, kf_slot: int, kf_order: List[int]):
         """BoW candidate retrieval for a new keyframe; None when detection
@@ -531,44 +571,27 @@ class LoopCloser:
         dev = state.device
         loop_pair = (min(kf_slot, cand), max(kf_slot, cand))
         ei, ej = essential_graph_edges(state.kf_valid, covis_pre, kf_order, self.loop_edges, loop_pair)
-        ones_k = torch.ones((K,), dtype=torch.float32, device=dev)
-        Rm, tm = pose_before[:, :3, :3], pose_before[:, :3, 3]
-        mR, mt, ms = pose_graph.relative_sim3((Rm[ei], tm[ei], ones_k[ei]), (Rm[ej], tm[ej], ones_k[ej]))
-        loop_pos = int(torch.searchsorted(ei * K + ej, loop_pair[0] * K + loop_pair[1]))
+        loop_pos = torch.searchsorted(ei * K + ej, loop_pair[0] * K + loop_pair[1])
         # S_cm maps cand -> current: the measurement S_ji when i = cand.
         S_loop = S_cm if loop_pair[0] == cand else sim3.inverse(S_cm)
-        mR, mt, ms = mR.clone(), mt.clone(), ms.clone()
-        mR[loop_pos], mt[loop_pos], ms[loop_pos] = S_loop
-        fixed = torch.zeros((K,), dtype=torch.bool, device=dev)
-        fixed[cand] = True
-        problem = pose_graph.PoseGraphProblem(
-            vert_R=state.kf_pose[:, :3, :3], vert_t=state.kf_pose[:, :3, 3], vert_s=ones_k,
-            vert_fixed=fixed | ~state.kf_valid, edge_i=ei, edge_j=ej,
-            meas_R=mR, meas_t=mt, meas_s=ms,
-            edge_valid=torch.ones(ei.shape, dtype=torch.bool, device=dev),
-        )
-        R_opt, t_opt, s_opt = pose_graph.optimize_pose_graph(problem, gn_iters=15, cg_iters=30)
-
-        ref = torch.clamp(state.mp_ref_kf, min=0).long()
-        old = state.kf_pose[ref]
-        p_cam = sim3.transform((old[:, :3, :3], old[:, :3, 3], torch.ones_like(state.mp_xyz[:, 0])),
-                               state.mp_xyz)
-        p_new = sim3.transform(sim3.inverse((R_opt[ref], t_opt[ref], s_opt[ref])), p_cam)
-        new_xyz = torch.where(state.mp_valid[:, None], p_new, state.mp_xyz)
-        new_pose = sim3.to_se3((R_opt, t_opt, s_opt))
-        kf_pose = torch.where(state.kf_valid[:, None, None], new_pose, state.kf_pose)
-        return state._replace(kf_pose=kf_pose, mp_xyz=new_xyz)
+        kf_pose, mp_xyz = essential_graph_solve(
+            state, pose_before, ei, ej, loop_pos, tuple(S_loop),
+            torch.full((), int(cand), dtype=torch.int64, device=dev))
+        return state._replace(kf_pose=kf_pose, mp_xyz=mp_xyz)
 
     # ------------------------------------------------------------------
     # Global BA: GBA_TOTAL_ITERS LM iterations in chunks of GBA_CHUNK_ITERS,
     # so a superseding loop aborts between chunks and frames interleave.
+    def _chunk_program(self, problem, lm_iters: int):
+        return ba.bundle_adjust(problem, self.cam, lm_iters=lm_iters, cg_iters=20)
+
     def _solve_chunk(self, problem, lm_iters):
         if self.mesh is not None:
             from ..parallel import distributed_bundle_adjust
 
             res = distributed_bundle_adjust(problem, self.cam, self.mesh, lm_iters=lm_iters, cg_iters=20)
             return ba.BAResult(*(x.to(problem.xyz.device) for x in res))
-        return ba.bundle_adjust(problem, self.cam, lm_iters=lm_iters, cg_iters=20)
+        return self._chunk_fn(problem, lm_iters)
 
     def global_ba_problem(self, state: MapState, kf_order):
         """The whole-map BA over the live keyframes (padded to a power-of-two

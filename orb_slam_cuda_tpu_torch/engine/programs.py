@@ -1,8 +1,10 @@
-"""Per-frame device programs: the counterpart of the JAX System's
-`jax.jit` closures (orb_slam_cuda_tpu/engine/system.py: `_frame_fn`,
-`_pipe_fn`, `_stereo_frame_fn`, `_rgbd_frame_fn`, and
-engine/tracking.py's `full_track_step`), each one device dispatch a
-frame.
+"""Device programs: the counterpart of the JAX package's `jax.jit`
+functions, each one device dispatch. The System's per-frame ones
+(orb_slam_cuda_tpu/engine/system.py: `_frame_fn`, `_pipe_fn`,
+`_stereo_frame_fn`, `_rgbd_frame_fn`, and engine/tracking.py's
+`full_track_step`) and the keyframe path's (keyframe insertion and depth
+points in engine/system.py, the mapper's in engine/local_mapping.py, loop
+detection and a global-BA chunk in engine/loop_closing.py).
 
 `Program(fn, name)` runs `fn` as a captured CUDA graph on the card:
 
@@ -23,6 +25,9 @@ frame.
   before the failure; nothing falls back to eager on the card, and the
   next capture opens a new pool.
 
+`to_device` and `read_async` move host arrays in and a packed result out
+through pinned memory without waiting for the stream.
+
 `eager()` makes every Program call `fn` directly (as `jax.disable_jit()`
 does): for debugging and for comparisons of graphed against eager runs.
 Live graphs share one memory pool (they never replay concurrently);
@@ -31,8 +36,8 @@ again, and the pool reuses their memory. Once no graph of a pool is left
 (a System's graphs go with it), the next capture opens a new pool: the
 old one keeps only what a capture allocated for good (cuBLAS's workspace
 for the capture stream), which PyTorch cannot hand to another capture. Kernel launches that a graph
-recorded are counted once per replay (`ops/fast_kernel.py`'s
-`launches`); a capture counts none. `captures`, `replays` and
+recorded are counted once per replay (the `launches` of each module in
+`KERNELS`); a capture counts none. `captures`, `replays` and
 `capture_s` sum every Program's counts, as `launches` does for the kernel.
 """
 
@@ -47,7 +52,11 @@ from typing import NamedTuple
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from ..ops import fast_kernel
+from ..ops import dlt_kernel, fast_kernel
+
+# The hand-written kernels whose wrappers count launches (`launches`, and
+# `recorded` under capture).
+KERNELS = (fast_kernel, dlt_kernel)
 
 
 class CaptureError(RuntimeError):
@@ -120,6 +129,39 @@ def program_key(*args):
     return _key(_flatten(args, tensors), tensors)
 
 
+def pow2_bucket(n: int, lo: int, hi: int) -> int:
+    """Smallest power of two >= n, clamped to [lo, hi]: a static size
+    that many counts share, so that they share one program."""
+    b = lo
+    while b < min(n, hi):
+        b *= 2
+    return min(b, hi)
+
+
+def to_device(a, device):
+    """A host array (or tensor) as a program input on `device`: to the card
+    through pinned memory, queued without waiting for the stream (a
+    capture refuses a copy from pageable memory, and it would wait)."""
+    t = torch.as_tensor(a)
+    device = torch.device(device)
+    if device.type != "cuda" or t.device.type != "cpu":
+        return t.to(device)
+    return t.contiguous().pin_memory().to(device, non_blocking=True)
+
+
+def read_async(t: torch.Tensor):
+    """Queue the copy of `t` to the host. Returns (host tensor, CUDA event
+    recorded after the copy, or None for a CPU tensor): the host tensor is
+    valid once the event has completed."""
+    if t.device.type != "cuda":
+        return t, None
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record()
+    return host, event
+
+
 class LastOp(TorchDispatchMode):
     """Remembers the last aten op dispatched and the port's line that
     called it."""
@@ -174,7 +216,7 @@ class _Graph(NamedTuple):
     inputs: list  # static input tensors, in argument order
     out_spec: object
     outputs: list  # the graph's output tensors
-    launches: int  # FAST kernel launches the graph recorded
+    launches: tuple  # launches the graph recorded, one count per module of KERNELS
 
 
 class Program:
@@ -211,7 +253,8 @@ class Program:
         g.graph.replay()
         self.replays += 1
         replays += 1
-        fast_kernel.launches += g.launches
+        for k, n in zip(KERNELS, g.launches):
+            k.launches += n
         return _unflatten(g.out_spec, iter([o.clone() for o in g.outputs]))
 
     def _capture(self, spec, tensors) -> _Graph:
@@ -224,7 +267,7 @@ class Program:
         entry = _pool(device)
         pool = entry[0]
         graph = torch.cuda.CUDAGraph()
-        recorded = fast_kernel.recorded
+        recorded = [k.recorded for k in KERNELS]
         t0 = time.perf_counter()
         try:
             with torch.cuda.graph(graph, pool=pool):
@@ -244,7 +287,7 @@ class Program:
         capture_s += dt
         outputs = []
         out_spec = _flatten(out, outputs)
-        return _Graph(graph, inputs, out_spec, outputs, fast_kernel.recorded - recorded)
+        return _Graph(graph, inputs, out_spec, outputs, tuple(k.recorded - r for k, r in zip(KERNELS, recorded)))
 
     def _last_op(self, args, device):
         """Capture once more under LastOp, in a pool of its own, to name

@@ -31,12 +31,22 @@ On the card each per-frame stage is one device program
 closures), replayed as a captured CUDA graph: `_frame_fn` (extraction and
 frame build, monocular at lag 0), `_track_fn` (the sync-free tracking
 step, every sensor at lag 0), `_pipe_fn` (the fused pipelined step),
-`_stereo_frame_fn` and `_rgbd_frame_fn`. Values that change from frame to
-frame (poses, the reference keyframe, `min_obs`, `th_depth`,
-`vo_th_depth`) enter as tensors; a capacity grow drops the map's graphs.
-On the CPU the System runs the same stages eagerly, as it always has
-(the tracking step's host-branch form at lag 0). Initialization,
-relocalization, mapping, loop closing and BA run eagerly on both.
+`_stereo_frame_fn` and `_rgbd_frame_fn`. So does the keyframe path:
+`_kf_insert_fn` (the keyframe and its BoW row), `_depth_points_fn`, the
+mapper's programs (engine/local_mapping.py: dispatch, BA round 2, the
+erase of culled keyframes) and the loop closer's (detection, a global-BA
+chunk without a mesh). Values that
+change from frame to frame or keyframe to keyframe (poses, keyframe
+slots, the reference keyframe, `min_obs`, `th_depth`, `vo_th_depth`, the
+slot matrix, the probation arrays) enter as tensors; a capacity grow
+drops the map's graphs. Between the three reads the JAX System also
+makes on the keyframe path (the mapper's packed vector, the depth-point
+count, the loop candidates) nothing reads back. On the CPU the System
+runs the same stages eagerly, as it always has (the tracking step's
+host-branch form at lag 0). Initialization, relocalization, the Sim3
+stage of loop closing, the essential-graph solve (sync-free, but a
+capture costs more than the one or two solves of a run), the gathering
+and applying of a global BA, and the mesh's solves run eagerly on both.
 
 With a mesh every rank runs the same host program on the same frames and
 must issue the same collectives in the same order, so no decision may
@@ -210,7 +220,7 @@ class System:
         self._graphed = self.device.type == "cuda"
         self._programs = self._make_programs()
         (self._frame_fn, self._track_fn, self._pipe_fn, self._stereo_frame_fn,
-         self._rgbd_frame_fn) = self._programs
+         self._rgbd_frame_fn, self._kf_insert_fn, self._depth_points_fn) = self._programs
 
         self.tracking_state = TrackingState.NO_IMAGES_YET
         self.velocity: Optional[np.ndarray] = None
@@ -255,9 +265,10 @@ class System:
         return self.device if self.device.type == "cuda" else None
 
     def _make_programs(self):
-        """The five per-frame programs. Their closure constants (camera,
-        vocabulary, extractor, scale factors, search radius, depth factor)
-        are fixed for the System's life; everything else is an argument."""
+        """The five per-frame programs and the keyframe's insertion and
+        depth points. Their closure constants (camera, vocabulary,
+        extractor, scale factors, search radius, depth factor) are fixed
+        for the System's life; everything else is an argument."""
         cam, vocab, ex = self.cam, self.vocab, self.extractor
         sf, radius, depth_factor = self._scale_factors_dev, self._radius_mm, self.cfg.depth_map_factor
 
@@ -290,21 +301,31 @@ class System:
             depth = stereo.depth_from_rgbd(frame.uv_raw, frame.valid, depth_map, cam, depth_factor)
             return frame._replace(right=stereo.virtual_right(frame.uv, depth, cam), depth=depth)
 
+        def kf_insert(state, db, frame, slot, pose, frame_id):
+            uv, right, depth, oct_, ang, desc, valid, word, node, mp, idf = frame
+            state = mstate.insert_keyframe(state, slot, pose, frame_id, uv, right, depth, oct_, ang, desc,
+                                           valid, word, node, map_ops.sanitize_bindings(state, mp))
+            wu, wt = keyframe_db.compute_bow_row(word, idf, valid)
+            return state, keyframe_db.insert(db, slot, wu, wt)
+
+        def depth_points(state, slot, th_depth, slots):
+            return local_mapping.create_depth_points(state, slot, cam, th_depth, slots, max_new=512)
+
         return tuple(programs.Program(fn, name) for fn, name in (
             (frame, "frame"), (track, "track"), (pipe, "pipe"), (stereo_frame, "stereo_frame"),
-            (rgbd_frame, "rgbd_frame")))
+            (rgbd_frame, "rgbd_frame"), (kf_insert, "kf_insert"), (depth_points, "depth_points")))
+
+    def _keyframe_programs(self):
+        """The mapper's and the loop closer's programs."""
+        return self.mapper.programs + (() if self.loop_closer is None else self.loop_closer.programs)
+
+    def _map_programs(self):
+        """Every program whose graphs are keyed on the map's capacities."""
+        return (self._track_fn, self._pipe_fn, self._kf_insert_fn, self._depth_points_fn) + self._keyframe_programs()
 
     def _scalar(self, value, dtype=torch.float32):
         """A 0-d program input on the card (a fill, no host-to-device copy)."""
         return torch.full((), value, dtype=dtype, device=self.device)
-
-    def _to_card(self, a):
-        """A host array or tensor on the card, copied through pinned memory
-        without waiting for the stream."""
-        t = torch.as_tensor(a)
-        if t.device.type != "cpu":
-            return t.to(self.device)
-        return t.contiguous().pin_memory().to(self.device, non_blocking=True)
 
     def _step_values(self, min_obs: int):
         """(min_obs, th_depth, vo_th_depth) as the tracking step takes them:
@@ -318,13 +339,14 @@ class System:
     def _drop_map_graphs(self):
         """The map's capacities changed: graphs keyed on the old ones can no
         longer replay."""
-        self._track_fn.clear()
-        self._pipe_fn.clear()
+        for p in self._map_programs():
+            p.clear()
 
     def program_stats(self) -> dict:
-        """Each per-frame program's captures, replays, capture seconds and
-        live graphs, and the bytes of the shared graph pool (0 on the CPU)."""
-        out = {p.name: p.stats() for p in self._programs}
+        """Each program's captures, replays, capture seconds and live graphs
+        (the per-frame ones, then the keyframe path's), and the bytes of the
+        shared graph pool (0 on the CPU)."""
+        out = {p.name: p.stats() for p in self._programs + self._keyframe_programs()}
         out["pool_bytes"] = programs.pool_bytes() if self._graphed else 0
         return out
 
@@ -539,7 +561,7 @@ class System:
             depth_map = depth_map.astype(np.int64 if depth_map.dtype.itemsize > 2 else np.int32)
         if self._graphed:
             with self.timer.stage("times.csv", "orb_extract_rgbd", sync=self._sync()):
-                frame = self._rgbd_frame_fn(self.extractor.upload(image), self._to_card(depth_map))
+                frame = self._rgbd_frame_fn(self.extractor.upload(image), programs.to_device(depth_map, self.device))
             return self._track_with_depth(frame, timestamp)
         with self.timer.stage("times.csv", "orb_extract_rgbd", sync=self._sync()):
             feats = self.extractor(image)
@@ -634,8 +656,8 @@ class System:
             last = (lf.uv, lf.oct, lf.ang, lf.bip, lf.mp, lf.depth)
             if self._graphed:
                 res = self._track_fn(
-                    self.state, frame, self._to_card(pose_pred.astype(np.float32)),
-                    self._to_card(self.last_pose.astype(np.float32)), last,
+                    self.state, frame, programs.to_device(pose_pred.astype(np.float32), self.device),
+                    programs.to_device(self.last_pose.astype(np.float32), self.device), last,
                     self._scalar(self.ref_kf, torch.int64), *self._step_values(min_obs),
                 )
             else:
@@ -1039,16 +1061,16 @@ class System:
         slot = int(free[0])
         self.kf_gen[slot] += 1
         self._next_kf_slot = (slot + 1) % self.cfg.max_keyframes
-        mp_clean = map_ops.sanitize_bindings(self.state, frame.mp)
-        self.state = mstate.insert_keyframe(
-            self.state, slot, torch.as_tensor(self.last_pose, dtype=torch.float32, device=self.device),
-            self.frame_id, frame.uv, frame.right, frame.depth, frame.oct, frame.ang,
-            frame.desc, frame.valid, frame.word, frame.node, mp_clean,
+        slot_t = self._scalar(slot, torch.int64)
+        self.state, self.db = self._kf_insert_fn(
+            self.state, self.db,
+            (frame.uv, frame.right, frame.depth, frame.oct, frame.ang, frame.desc, frame.valid, frame.word,
+             frame.node, frame.mp, frame.idf),
+            slot_t, programs.to_device(np.asarray(self.last_pose, np.float32), self.device),
+            self._scalar(self.frame_id, torch.int32),
         )
         if self.cfg.sensor != Sensor.MONOCULAR:
-            self._create_depth_points(slot)
-        wu, wt = keyframe_db.compute_bow_row(frame.word, frame.idf, frame.valid)
-        self.db = keyframe_db.insert(self.db, slot, wu, wt)
+            self._create_depth_points(slot_t)
         self.kf_order.append(slot)
         self.ref_kf = slot
         self.frames_since_kf = 0
@@ -1087,14 +1109,14 @@ class System:
             with self.timer.stage("timesMapping.csv", "loop_closing", sync=self._sync()):
                 self.state, self.db = lc.process(self.state, self.db, slot, self.kf_order)
 
-    def _create_depth_points(self, slot: int):
+    def _create_depth_points(self, slot_t):
         """A stereo/RGB-D keyframe spawns points for its unbound close
-        features; they enter the probation list."""
+        features; they enter the probation list. Their count is read back
+        (as the JAX System reads it)."""
         MAX_NEW = 512
         slots = self.mapper.peek_point_slots(self.state, MAX_NEW)
-        self.state, n_used = local_mapping.create_depth_points(
-            self.state, slot, self.cam, self.th_depth, slots, max_new=MAX_NEW,
-        )
+        self.state, n_used = self._depth_points_fn(
+            self.state, slot_t, self._scalar(self.th_depth), programs.to_device(slots.astype(np.int64), self.device))
         n_used = int(n_used)
         self.mapper.advance_point_slots(slots, n_used)
         self.mapper.note_points_added(slots[:n_used])

@@ -50,7 +50,13 @@ class Camera(NamedTuple):
         )
 
     def K_on(self, device) -> torch.Tensor:
-        return torch.as_tensor(self.K, device=device)
+        """`K` on `device`, written by fills: no host-to-device copy, which
+        a CUDA-graph capture would refuse."""
+        K = torch.zeros((3, 3), dtype=torch.float32, device=device)
+        for (i, j), v in (((0, 0), self.fx), ((0, 2), self.cx), ((1, 1), self.fy), ((1, 2), self.cy),
+                          ((2, 2), 1.0)):
+            K[i, j].fill_(v)
+        return K
 
     @property
     def has_distortion(self) -> bool:

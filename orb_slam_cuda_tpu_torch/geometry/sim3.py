@@ -104,7 +104,9 @@ def log(S):
     R, t, s = S
     phi = se3.so3_log(R)
     sigma = torch.log(s)
-    rho = torch.linalg.solve(_w_matrix(phi, sigma), t[..., None])[..., 0]
+    # `solve_ex` without its error check, which reads a status back on the
+    # card: the same bits.
+    rho = torch.linalg.solve_ex(_w_matrix(phi, sigma), t[..., None], check_errors=False).result[..., 0]
     return torch.cat([rho, phi, sigma[..., None]], dim=-1)
 
 
@@ -136,7 +138,7 @@ def tangent_jacobian(f, x0):
     cols = []
     for c in range(x0.shape[-1]):
         tangent = torch.zeros_like(x0)
-        tangent[..., c] = 1.0
+        tangent[..., c].fill_(1.0)
         cols.append(torch.func.jvp(f, (x0,), (tangent,))[1])
     return torch.stack(cols, dim=-1)
 

@@ -5,11 +5,22 @@ from __future__ import annotations
 
 import torch
 
+from ..ops import dlt_kernel
+
 
 def triangulate_dlt(P1, P2, xy1, xy2):
     """Linear (DLT) triangulation. P1, P2: (3,4); xy1, xy2: (N,2).
-    Returns (N,3). The null vector is the smallest-eigenvalue
-    eigenvector of A^T A, as the reference computes it."""
+    Returns (N,3). On the card the hand-written kernel of
+    ops/dlt_kernel.py (Jacobi in double, no host sync), on the CPU the
+    plain version."""
+    return dlt_kernel.triangulate_dlt(P1.float().contiguous(), P2.float().contiguous(),
+                                      xy1.float().contiguous(), xy2.float().contiguous())
+
+
+def triangulate_dlt_plain(P1, P2, xy1, xy2):
+    """The plain version: the null vector is the smallest-eigenvalue
+    eigenvector of A^T A, as the reference computes it (`eigh`, which on
+    the card reads a status back)."""
     def rows(P, xy):
         r1 = xy[..., 0:1] * P[2] - P[0]
         r2 = xy[..., 1:2] * P[2] - P[1]
@@ -45,7 +56,7 @@ def cheirality_and_parallax(X, T1, T2):
 
 def fundamental_from_poses(K1, T1w, K2, T2w):
     """F12 with x1^T F12 x2 = 0, from two world->cam poses."""
-    T12 = T1w @ torch.linalg.inv(T2w)
+    T12 = T1w @ _inv(T2w)
     R12 = T12[:3, :3]
     t12 = T12[:3, 3]
     z = torch.zeros((), dtype=T1w.dtype, device=T1w.device)
@@ -56,7 +67,13 @@ def fundamental_from_poses(K1, T1w, K2, T2w):
             torch.stack([-t12[1], t12[0], z]),
         ]
     )
-    return torch.linalg.inv(K1).T @ tx @ R12 @ torch.linalg.inv(K2)
+    return _inv(K1).T @ tx @ R12 @ _inv(K2)
+
+
+def _inv(M):
+    """`linalg.inv` without its error check, which reads a status back on
+    the card (the same bits)."""
+    return torch.linalg.inv_ex(M, check_errors=False).inverse
 
 
 def epipolar_distance_sq(F12, xy1, xy2):

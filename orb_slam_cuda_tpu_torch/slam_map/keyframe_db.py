@@ -12,6 +12,7 @@ from typing import NamedTuple
 import torch
 
 from ..ops.segsum import segment_sum
+from .state import slot_index, slot_mask
 
 _PAD = 2**30  # sort-to-the-end sentinel for invalid words
 
@@ -56,11 +57,12 @@ def compute_bow_row(word_ids, idf, feat_valid):
 
 
 def insert(db: BowDB, slot, word_u, weight_u) -> BowDB:
-    word, weight, valid = db.word.clone(), db.weight.clone(), db.valid.clone()
-    word[slot] = word_u
-    weight[slot] = weight_u
-    valid[slot] = True
-    return BowDB(word, weight, valid)
+    """Row `slot` (an int or a slot tensor) takes the keyframe's BoW."""
+    s = slot_index(slot, db.word.device)
+    word, weight = db.word.clone(), db.weight.clone()
+    word[s] = word_u.to(word.dtype)
+    weight[s] = weight_u
+    return BowDB(word, weight, db.valid.clone().index_fill_(0, s, True))
 
 
 def grow(db: BowDB, new_K: int) -> BowDB:
@@ -79,11 +81,11 @@ def grow(db: BowDB, new_K: int) -> BowDB:
 
 
 def erase(db: BowDB, slot) -> BowDB:
-    word, weight, valid = db.word.clone(), db.weight.clone(), db.valid.clone()
-    word[slot] = -1
-    weight[slot] = 0.0
-    valid[slot] = False
-    return BowDB(word, weight, valid)
+    """Clear row `slot` (an int, a slot tensor, or a (K,) bool mask)."""
+    gone = slot_mask(slot, db.valid.shape[0], db.word.device)
+    return BowDB(torch.where(gone[:, None], torch.full_like(db.word, -1), db.word),
+                 torch.where(gone[:, None], torch.zeros_like(db.weight), db.weight),
+                 db.valid & ~gone)
 
 
 def dense_bow(word_u, weight_u, n_words: int):

@@ -11,7 +11,7 @@ import torch
 
 from ..ops import hamming
 from ..ops.segsum import segment_sum
-from .state import MapConfig, MapState
+from .state import MapConfig, MapState, slot_index
 
 
 def _obs_valid(state: MapState):
@@ -88,14 +88,14 @@ def refresh_covis_rows(state: MapState, kf_ids) -> MapState:
     row_mp = state.kf_mp[safe].long()  # (M,N)
     cond = (row_mp >= 0) & state.kf_feat_valid[safe]
     M = kf_ids.shape[0]
-    sel = torch.zeros((M, P + 1), dtype=torch.bool, device=state.device)
+    rows = torch.arange(M, device=state.device)
     col = torch.where(cond, row_mp, torch.full_like(row_mp, P))
-    sel[torch.arange(M, device=state.device)[:, None].expand(M, N), col] = True
-    sel = sel[:, :P]
+    sel = torch.zeros((M * (P + 1),), dtype=torch.bool, device=state.device)
+    sel = sel.index_fill_(0, (rows[:, None] * (P + 1) + col).reshape(-1), True).reshape(M, P + 1)[:, :P]
     hit = ov[None] & sel[:, seg]  # (M,K,N)
     w = torch.sum(hit, dim=2).to(torch.int32)
     w = torch.where(state.kf_valid[None, :] & state.kf_valid[safe][:, None], w, torch.zeros_like(w))
-    w[torch.arange(M, device=state.device), safe] = 0
+    w = w.reshape(-1).index_fill_(0, rows * K + safe, 0).reshape(M, K)
     idx = torch.where(kf_ids >= 0, kf_ids, torch.full_like(kf_ids, K))
     covis = torch.zeros((K + 1, K + 1), dtype=torch.int32, device=state.device)
     covis[:K, :K] = state.covis
@@ -207,9 +207,10 @@ def keyframe_redundancy(state: MapState, kf_slot, th_scale_slack: int = 1):
     equal-or-finer scale (KeyFrameCulling's 90% rule)."""
     K, N = state.kf_mp.shape
     P = state.mp_xyz.shape[0]
-    row_mp = state.kf_mp[kf_slot].long()
+    s = slot_index(kf_slot, state.device)
+    row_mp = state.kf_mp[s][0].long()
     row_valid = row_mp >= 0
-    row_oct = state.kf_oct[kf_slot]
+    row_oct = state.kf_oct[s][0]
     safe = torch.clamp(row_mp, min=0)
     oct_ceiling = _scatter(P, safe, torch.where(row_valid, row_oct + th_scale_slack, torch.zeros_like(row_oct)),
                            "amax", 0, dtype=torch.int32)
@@ -219,7 +220,7 @@ def keyframe_redundancy(state: MapState, kf_slot, th_scale_slack: int = 1):
         _obs_valid(state)
         & in_row[seg]
         & (state.kf_oct <= oct_ceiling[seg])
-        & (torch.arange(K, device=state.device)[:, None] != kf_slot)
+        & (torch.arange(K, device=state.device)[:, None] != s)
     )
     per_point = torch.zeros((P,), dtype=torch.int32, device=state.device)
     per_point.index_add_(0, seg.reshape(-1), counted.reshape(-1).to(torch.int32))

@@ -4,7 +4,10 @@ orb_slam_cuda_tpu/slam_map/state.py).
 Updates are functional, as in the reference: each returns a new
 `MapState` whose changed fields are fresh tensors, so a state held by a
 caller never changes under it. Scatters route padding to a trash row
-that is sliced off, never onto index 0.
+that is sliced off, never onto index 0. A keyframe slot is a Python int
+or a slot tensor (0-d or one element): the mapping programs pass tensors,
+which index without reading a value back and are not frozen into a
+captured graph.
 """
 
 from __future__ import annotations
@@ -162,20 +165,36 @@ def grow_points(state: MapState, new_P: int) -> MapState:
     return state._replace(**upd)
 
 
+def slot_index(slot, device):
+    """A keyframe slot (a Python int, or a tensor of one element) as a (1,)
+    int64 index. A 0-d tensor index would be turned into a Python int, a
+    read-back on the card."""
+    if torch.is_tensor(slot):
+        return slot.reshape(1).long()
+    return torch.full((1,), int(slot), dtype=torch.int64, device=device)
+
+
 def _set_row(arr, slot, value):
+    """A copy of `arr` with row `slot` (a (1,) index) set to `value`, a
+    tensor or a Python scalar (written by a fill: a scalar assigned through
+    an index is copied from the host)."""
     out = arr.clone()
-    out[slot] = value
+    if torch.is_tensor(value):
+        out[slot] = value.to(arr.dtype)
+    else:
+        out.index_fill_(0, slot, value)
     return out
 
 
 def insert_keyframe(state: MapState, slot, pose, frame_id, uv, right, depth,
                     oct_, ang, desc, feat_valid, word, node, mp_assoc) -> MapState:
-    """Write a keyframe into `slot` (Map::AddKeyFrame + KeyFrame ctor)."""
-    slot = int(slot)
+    """Write a keyframe into `slot` (Map::AddKeyFrame + KeyFrame ctor);
+    `frame_id` an int or a 0-d tensor."""
+    slot = slot_index(slot, state.device)
     return state._replace(
         kf_pose=_set_row(state.kf_pose, slot, pose),
         kf_valid=_set_row(state.kf_valid, slot, True),
-        kf_frame_id=_set_row(state.kf_frame_id, slot, int(frame_id)),
+        kf_frame_id=_set_row(state.kf_frame_id, slot, frame_id if torch.is_tensor(frame_id) else int(frame_id)),
         kf_uv=_set_row(state.kf_uv, slot, uv),
         kf_right=_set_row(state.kf_right, slot, right),
         kf_depth=_set_row(state.kf_depth, slot, depth),
@@ -220,7 +239,8 @@ def bind_observations(state: MapState, kf_slot, feat_idx, point_idx, valid) -> M
     """kf_mp[kf_slot, feat_idx[i]] = point_idx[i] where valid[i]. Invalid
     rows go to a trash column, so they cannot overwrite feature 0."""
     N = state.kf_mp.shape[1]
-    row = torch.cat([state.kf_mp[kf_slot], state.kf_mp.new_full((1,), -1)])
+    kf_slot = slot_index(kf_slot, state.device)
+    row = torch.cat([state.kf_mp[kf_slot][0], state.kf_mp.new_full((1,), -1)])
     idx = torch.where(valid, feat_idx.long(), torch.full_like(feat_idx, N, dtype=torch.int64))
     # A feature written twice keeps the later point, as a serial scatter does.
     idx = torch.where(last_writes(idx, N + 1), idx, torch.full_like(idx, N))
@@ -238,15 +258,21 @@ def erase_points(state: MapState, point_mask) -> MapState:
     )
 
 
+def slot_mask(slot, n: int, device):
+    """(n,) bool: True at a slot (int or slot tensor); a (n,) bool tensor
+    is a mask of slots already."""
+    if torch.is_tensor(slot) and slot.dtype == torch.bool:
+        return slot
+    return torch.zeros((n,), dtype=torch.bool, device=device).index_fill_(0, slot_index(slot, device), True)
+
+
 def erase_keyframe(state: MapState, kf_slot) -> MapState:
-    """Invalidate a keyframe, its observation row and covisibility."""
-    kf_slot = int(kf_slot)
-    covis = state.covis.clone()
-    covis[kf_slot, :] = 0
-    covis[:, kf_slot] = 0
+    """Invalidate a keyframe (a slot, or a (K,) bool mask of slots), its
+    observation row and covisibility."""
+    gone = slot_mask(kf_slot, state.kf_valid.shape[0], state.device)
     return state._replace(
-        kf_valid=_set_row(state.kf_valid, kf_slot, False),
-        kf_mp=_set_row(state.kf_mp, kf_slot, -1),
-        kf_feat_valid=_set_row(state.kf_feat_valid, kf_slot, False),
-        covis=covis,
+        kf_valid=state.kf_valid & ~gone,
+        kf_mp=torch.where(gone[:, None], torch.full_like(state.kf_mp, -1), state.kf_mp),
+        kf_feat_valid=state.kf_feat_valid & ~gone[:, None],
+        covis=torch.where(gone[:, None] | gone[None, :], torch.zeros_like(state.covis), state.covis),
     )

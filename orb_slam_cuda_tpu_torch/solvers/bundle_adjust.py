@@ -133,7 +133,7 @@ def bundle_adjust(problem: BAProblem, cam: Camera, lm_iters: int = 10,
         return r * comp, Jc * comp[..., None], Jp * comp[..., None], w, err
 
     cam_pose, xyz = problem.cam_pose, problem.xyz
-    lam = torch.tensor(1e-4, dtype=torch.float32, device=dev)
+    lam = torch.full((), 1e-4, dtype=torch.float32, device=dev)
     for _ in range(lm_iters):
         rw, Jcw, Jpw, w, err = build_system(cam_pose, xyz)
         bc = psum(segsum(seg_c, torch.einsum("eki,ek,e->ei", Jcw, rw, w)))
@@ -142,8 +142,10 @@ def bundle_adjust(problem: BAProblem, cam: Camera, lm_iters: int = 10,
         Hpp = segsum(seg_p, torch.einsum("eki,ekj,e->eij", Jpw, Jpw, w))
         lam_dc = lam * torch.clamp(torch.diagonal(Hcc, dim1=-2, dim2=-1), min=1e-6) + ABS_DAMP
         lam_dp = lam * torch.clamp(torch.diagonal(Hpp, dim1=-2, dim2=-1), min=1e-6) + ABS_DAMP
-        Minv_c = torch.linalg.inv(Hcc + lam_dc[:, :, None] * eye6 + 1e-8 * eye6)
-        Minv_p = torch.linalg.inv(Hpp + lam_dp[:, :, None] * eye3 + 1e-8 * eye3)
+        # `inv_ex` without its error check (which reads a status back on
+        # the card): the same bits.
+        Minv_c = torch.linalg.inv_ex(Hcc + lam_dc[:, :, None] * eye6 + 1e-8 * eye6, check_errors=False).inverse
+        Minv_p = torch.linalg.inv_ex(Hpp + lam_dp[:, :, None] * eye3 + 1e-8 * eye3, check_errors=False).inverse
         Minv_c = torch.where(cam_free[:, None, None], Minv_c, torch.zeros_like(Minv_c))
         Minv_p = torch.where(pt_free[:, None, None], Minv_p, torch.zeros_like(Minv_p))
         cf = cam_free[:, None]
@@ -204,8 +206,8 @@ def bundle_adjust(problem: BAProblem, cam: Camera, lm_iters: int = 10,
                      torch.full_like(chi2, chi2_outlier_mono))
     inlier = problem.obs_valid & depth_ok & (chi2 <= th)
     # A point explaining none of its observations reverts to its input.
-    pt_has_inl = torch.zeros((P + 1,), dtype=torch.bool, device=dev)
-    pt_has_inl[torch.where(inlier, pi, torch.full_like(pi, P))] = True
+    pt_has_inl = torch.zeros((P + 1,), dtype=torch.bool, device=dev).index_fill_(
+        0, torch.where(inlier, pi, torch.full_like(pi, P)), True)
     keep = (pt_has_inl[:P] | ~pt_free)[:, None]
     xyz = torch.where(keep, xyz, problem.xyz)
     xyz = torch.where(torch.all(torch.isfinite(xyz), -1, keepdim=True), xyz, problem.xyz)

@@ -29,10 +29,24 @@ outputs must be torch.equal, and the replay time is printed beside the
 eager time (CUDA events around the call, median of 20). A failed capture
 raises, naming the op it failed at.
 
-Last, the stereo and RGB-D frame programs: chip_smoke.py's phase 5c cuts
+Then the stereo and RGB-D frame programs: chip_smoke.py's phase 5c cuts
 (the first 30 stereo pairs of its circuit, the first 30 RGB-D frames),
 each eager and graphed with the same gates, the last 3 frames of each run
 under torch.profiler (host API launches and device kernels a frame).
+
+Last, the keyframe frames: a frame that ran keyframe work (keyframe
+insertion, the mapper's units, loop detection: a timesMapping.csv row at
+that frame). A first graphed run of each cut, without the profiler,
+finds the keyframe frames at which no program captured: there every
+keyframe program replays a graph that an earlier keyframe captured.
+Then the cut runs again, eager and graphed (new Systems, whose keyframes
+fall on the same frames and whose graphs are captured at the same
+frames), with those frames and the last KF_OTHER frames without
+keyframe work each under a torch.profiler of its own. For both kinds
+apart it prints the host API launches, device kernels, device ms and
+wall ms a frame and the card's idle share, beside the `local_mapping`
+and `local_ba2` means; the graphed run must capture at none of the
+profiled frames.
 
 Everything is also written as JSON to `--out`.
 
@@ -57,6 +71,7 @@ import torch
 WINDOW_FROM = 48
 PROFILE_FROM, PROFILE_FRAMES = 60, 10
 DEPTH_PROFILED = 3  # the stereo and RGB-D runs' frames under torch.profiler
+KF_OTHER = 3  # frames without keyframe work profiled beside the keyframe frames
 MODES = ("eager", "graphed")
 
 
@@ -152,6 +167,93 @@ def profile(cs, cam, frames, vocab, lag, device):
                 device_kernels_per_frame=len(dev) / PROFILE_FRAMES, device_ms_per_frame=busy / 1e3 / PROFILE_FRAMES,
                 wall_ms_per_frame=wall_us / 1e3 / PROFILE_FRAMES, idle_share=1.0 - busy / wall_us,
                 top_device_ms_per_frame={k: v / 1e3 / PROFILE_FRAMES for k, v in top})
+
+
+def _frame_profile(track, slam, frame, t, launch_apis, by_kernel):
+    """One frame under a torch.profiler of its own: (host API launches,
+    device events, device busy us, wall us); each device event's us are
+    added to `by_kernel` under its name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        track(slam, frame, t)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = prof.events()
+    dev = [e for e in events if e.device_type == DeviceType.CUDA]
+    host = sum(1 for e in events if e.device_type == DeviceType.CPU and e.name in launch_apis)
+    for e in dev:
+        by_kernel[e.name] = by_kernel.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
+    return host, len(dev), _busy_us(dev), wall_us
+
+
+def keyframe_frames(cs, rgbd):
+    """The phase-5c stereo and RGB-D cuts: keyframe frames whose programs
+    all replay, and KF_OTHER frames without keyframe work, each profiled
+    alone, eager and graphed (see the module docstring)."""
+    from orb_slam_cuda_tpu_torch.engine import Sensor, programs
+
+    s_cam, _, pairs = cs.make_stereo_fixture("cuda", cs.PROGRAM_FRAMES)
+    r_cam, _, r_frames = rgbd
+    cuts = (("stereo", lambda: cs.build_system(cs.circuit_config(s_cam, Sensor.STEREO), None),
+             lambda s, pair, t: s.track_stereo(pair[0], pair[1], t), pairs, 0.1),
+            ("rgbd", lambda: cs.build_system(cs.rgbd_config(r_cam), None), cs._track_rgbd,
+             r_frames[:cs.PROGRAM_FRAMES], cs.RGBD_DT))
+    out = {}
+    for name, make, track, frames, dt in cuts:
+        slam, captured_at = make(), set()
+        for i, frame in enumerate(frames):
+            before = programs.captures
+            track(slam, frame, i * dt)
+            if programs.captures != before:
+                captured_at.add(i)
+        mapped = {r[0] for r in slam.timer.rows["timesMapping.csv"]}
+        kinds = (("keyframe frames, replayed", sorted(mapped - captured_at)),
+                 ("other frames", sorted(set(range(len(frames))) - mapped - captured_at)[-KF_OTHER:]))
+        print(f"keyframe frames, {name}: keyframe work at frames {sorted(mapped)}, captures at "
+              f"{sorted(captured_at)}; profiled {dict(kinds)}", flush=True)
+        profiled = {i for _, sel in kinds for i in sel}
+        for mode in MODES:
+            slam, rows, by_frame, captures = make(), {}, {}, 0
+            with mode_context(mode):
+                for i, frame in enumerate(frames):
+                    if i not in profiled:
+                        track(slam, frame, i * dt)
+                        continue
+                    before = programs.captures
+                    by_frame[i] = {}
+                    rows[i] = _frame_profile(track, slam, frame, i * dt, cs.LAUNCH_APIS, by_frame[i])
+                    captures += programs.captures - before
+            if captures:
+                raise AssertionError(f"{name}, {mode}: {captures} captures at the profiled frames")
+            rec = {}
+            for kind, sel in kinds:
+                if not sel:
+                    print(f"keyframe frames, {name}, {mode}, {kind}: none", flush=True)
+                    continue
+                a = np.asarray([rows[i] for i in sel], np.float64)
+                host, kernels, busy, wall = a.mean(0)
+                top = {}
+                for i in sel:
+                    for k, us in by_frame[i].items():
+                        top[k] = top.get(k, 0.0) + us / 1e3 / len(sel)
+                top = dict(sorted(top.items(), key=lambda kv: -kv[1])[:10])
+                rec[kind] = dict(frames=sel, host_launches_per_frame=host, device_kernels_per_frame=kernels,
+                                 device_ms_per_frame=busy / 1e3, wall_ms_per_frame=wall / 1e3,
+                                 idle_share=1.0 - a[:, 2].sum() / a[:, 3].sum(), top_device_ms_per_frame=top)
+                print(f"keyframe frames, {name}, {mode}, {kind} (frames {sel}, each profiled alone): {host:.1f} "
+                      f"host API launches, {kernels:.1f} device kernels, {busy / 1e3:.2f} device ms, "
+                      f"{wall / 1e3:.2f} wall ms a frame; idle share {rec[kind]['idle_share']:.4f}; top device "
+                      f"ms a frame {json.dumps(top)}", flush=True)
+            means = {k: v for k, v in slam.timer.summary("timesMapping.csv").items()
+                     if k in ("local_mapping", "local_ba2", "loop_detect", "local_mapping_finish")}
+            print(f"keyframe frames, {name}, {mode}: timesMapping means {json.dumps(means)}", flush=True)
+            rec["mapping_means"] = means
+            out[f"{name}, {mode}"] = rec
+    return out
 
 
 def _events_median_ms(fn, reps=20):
@@ -258,8 +360,9 @@ def main() -> int:
               f"torch.equal to the eager step's; replay {g['replay_ms']:.3f} ms, eager {g['eager_ms']:.3f} ms "
               f"(CUDA events, median of 20); captured here {g['captured_here']}", flush=True)
     if on_gpu:
-        out["depth_programs"] = cs.depth_programs_against_eager(
-            cs.make_rgbd_fixture("cuda", n_frames=cs.PROGRAM_FRAMES), profiled=DEPTH_PROFILED)
+        rgbd = cs.make_rgbd_fixture("cuda", n_frames=cs.PROGRAM_FRAMES)
+        out["depth_programs"] = cs.depth_programs_against_eager(rgbd, profiled=DEPTH_PROFILED)
+        out["keyframe_frames"] = keyframe_frames(cs, rgbd)
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(out, f)

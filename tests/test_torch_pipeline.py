@@ -27,14 +27,10 @@ and ATE < 0.10 m in both, keyframes within max(2, 25%). Also: status and
 trajectory retire the frames in flight, reset drops them, and (slow) the
 pipelined blackout of tests/test_end_to_end.py recovers."""
 
-import os
-import traceback
-
 import jax
 import numpy as np
 import pytest
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
 
 from orb_slam_cuda_tpu.engine import tracking as jtr
 from orb_slam_cuda_tpu.engine.frame import build_frame as jbuild_frame
@@ -51,7 +47,7 @@ from orb_slam_cuda_tpu_torch.geometry.camera import Camera
 from orb_slam_cuda_tpu_torch.slam_map import ops as map_ops
 from orb_slam_cuda_tpu_torch.utils import convert
 from orb_slam_cuda_tpu_torch.utils.evaluation import ate_rmse, camera_centers
-from torch_parity import assert_same, to_np
+from torch_parity import _SyncSpy, assert_same, to_np
 
 torch.set_num_threads(2)
 W, H = 320, 240
@@ -162,35 +158,6 @@ def test_sync_free_step_equals_sync_step(snapshot, name):
     free = ttr.full_track_step_sync_free(*args, tcarry.ref_kf, *tail)
     for f in ttr.FullStepResult._fields:
         assert torch.equal(getattr(sync, f), getattr(free, f)), f
-
-
-# Ops that read a device value back to the host, or copy host data to the
-# device (which waits for the stream), when their tensors are on CUDA:
-# `lift_fresh` is a tensor made from host data, `torch.as_tensor(list)` or
-# the scalar of `x[i] = 1.0`.
-_SYNCING = {"_local_scalar_dense", "is_nonzero", "item", "nonzero", "nonzero_static", "masked_select",
-            "_linalg_check_errors", "lift_fresh", "lift_fresh_copy", "unique", "_unique2",
-            "repeat_interleave", "bincount", "_assert_async"}
-
-
-def _port_line():
-    """The innermost line of the port on the stack."""
-    frames = [f for f in traceback.extract_stack() if "orb_slam_cuda_tpu_torch" in f.filename]
-    return f"{os.path.basename(frames[-1].filename)}:{frames[-1].lineno}: {frames[-1].line}" if frames else "?"
-
-
-class _SyncSpy(TorchDispatchMode):
-    def __init__(self):
-        super().__init__()
-        self.hits = []
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        name = func.overloadpacket.__name__
-        bool_index = name in ("index", "index_put", "index_put_") and any(
-            isinstance(i, torch.Tensor) and i.dtype == torch.bool for i in (args[1] or ()))
-        if name in _SYNCING or bool_index:
-            self.hits.append(f"{func} at {_port_line()}")
-        return func(*args, **(kwargs or {}))
 
 
 def test_pipelined_step_reads_nothing_back(snapshot):

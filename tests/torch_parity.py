@@ -5,10 +5,13 @@ outputs come back as numpy for comparison."""
 from __future__ import annotations
 
 import dataclasses
+import os
+import traceback
 
 import jax.numpy as jnp
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from orb_slam_cuda_tpu_torch.geometry.camera import Camera
 from orb_slam_cuda_tpu_torch.utils import convert
@@ -121,3 +124,36 @@ def assert_configs_equal(jcfg, tcfg):
             assert jv == tv and type(jv) is type(tv), (f.name, jv, tv)
     # Fields the port does not have are options of unported paths.
     assert jf - {f.name for f in dataclasses.fields(tcfg)} <= {"use_pallas_fast"}
+
+
+# Ops that read a device value back to the host, or copy host data to the
+# device (which waits for the stream), when their tensors are on CUDA:
+# `lift_fresh` is a tensor made from host data, `torch.as_tensor(list)` or
+# the scalar of `x[i] = 1.0`; `eigh` and `svd` always wait for their
+# status on the card.
+_SYNCING = {"_local_scalar_dense", "is_nonzero", "item", "nonzero", "nonzero_static", "masked_select",
+            "_linalg_check_errors", "lift_fresh", "lift_fresh_copy", "unique", "_unique2",
+            "repeat_interleave", "bincount", "_assert_async", "_linalg_eigh", "_linalg_svd"}
+
+
+def _port_line():
+    """The innermost line of the port on the stack."""
+    frames = [f for f in traceback.extract_stack() if "orb_slam_cuda_tpu_torch" in f.filename]
+    return f"{os.path.basename(frames[-1].filename)}:{frames[-1].lineno}: {frames[-1].line}" if frames else "?"
+
+
+class _SyncSpy(TorchDispatchMode):
+    """Records every op dispatched inside it that would read back or copy
+    from the host on CUDA (run on the CPU, where nothing is lost by it)."""
+
+    def __init__(self):
+        super().__init__()
+        self.hits = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = func.overloadpacket.__name__
+        bool_index = name in ("index", "index_put", "index_put_") and any(
+            isinstance(i, torch.Tensor) and i.dtype == torch.bool for i in (args[1] or ()))
+        if name in _SYNCING or bool_index:
+            self.hits.append(f"{func} at {_port_line()}")
+        return func(*args, **(kwargs or {}))
