@@ -4,8 +4,8 @@
 Phases, each printing its own lines:
   1. device check: a CUDA device is required; prints the card's name and
      power limit as nvidia-smi reports them;
-  2. build: compiles the two hand-written kernels from csrc/ with nvcc,
-     one process each, started together (fast_corners.cu and
+  2. build: compiles the two hand-written kernel sources from csrc/ with
+     nvcc, one process each, started together (fast_corners.cu and
      triangulate_dlt.cu);
   3. kernel against plain: both entry points of the FAST kernel at the 8
      pyramid shapes of a rendered 1241x376 frame, at the 8 of a rendered
@@ -35,14 +35,19 @@ Phases, each printing its own lines:
      `build_frame`'s time on that vocabulary beside the 512-word synthetic
      one. Then one more pipelined step, after that warm-up, runs under
      torch.cuda.set_sync_debug_mode("error"): it must not synchronize;
-  5a. the DLT kernel (csrc/triangulate_dlt.cu, the mapper's triangulation)
-     on real inputs: the orbit map's last keyframe against its best
-     covisible neighbour, all 2000 features, through the mapper's whole
-     triangulation once with the kernel and once with its plain version
-     (float32 `eigh`): gated on the max relative error of the points both
-     accept (1e-2; against float64 `eigh` 1e-4) and on the share of
-     matched points whose gate parts (2%); prints the device time warm
-     and as called, the plain version's time and the bound;
+  5a. the DLT kernel (csrc/triangulate_dlt.cu) on real inputs: the orbit
+     map's last keyframe against its best covisible neighbour, all 2000
+     features, through the mapper's whole triangulation once with the
+     kernel's gated entry (everything after the match in one launch) and
+     once with its plain version (float32 `eigh` and the gate ops), and
+     the DLT entry (the initializer's) on the same pairs: gated on the max
+     relative error of each entry's points that both accept (1e-2 against
+     float32 `eigh`, 1e-4 against float64), on the share of matched points
+     whose gate parts from the plain version's (2%), on the gated entry's
+     `ok` against the plain gate stage on the kernel's own points (at most
+     2 points apart) and on one device launch a gated call; prints each
+     entry's device time warm and cold and as called, the plain version's
+     time and device launches, and the bound;
   5b. repeatability: a local BA on the orbit's final map and an
      essential-graph solve on a 256-keyframe ring with a drifted loop
      edge, each run twice under programs.eager(), then as a program (the
@@ -125,9 +130,11 @@ for bit (tools/rgbd_repeat.py in the package checks it on the RGB-D
 frames); a run on another card or host can still part from it, and every
 gate is on this one run. The line before the last is the kernel table as
 JSON: the FAST kernel with its launches summed over all paths (one per
-extracted image) and the DLT kernel with its launches summed over all
-paths (the initializer's and the mapper's triangulations; every path
-whose mapper dispatched a keyframe must have launched it). The line
+extracted image) and the DLT kernel's two entries with their launches
+summed over all paths: `triangulate_dlt` (the initializer's) and
+`triangulate_gated` (one a triangulation neighbour of every keyframe the
+mapper took; every path whose mapper dispatched a keyframe must have
+launched it). The line
 before that holds the same numbers for fast_score_pair, the entry point
 the paths do not call. The last line is the device JSON. Any failure
 raises and exits non-zero without them. Every path prints its programs'
@@ -191,16 +198,32 @@ BYTES_PER_PIXEL = {"fast_score_pair": 12, "fast_corners_pyramid": 8}
 KERNEL_SOURCE = "orb_slam_cuda_tpu_torch/csrc/fast_corners.cu"
 DLT_SOURCE = "orb_slam_cuda_tpu_torch/csrc/triangulate_dlt.cu"
 # The least work of the function a point, whatever the kernel does (its
-# double arithmetic and 8 sweeps are its own choice): A (16 products, 16
-# differences), the 10 entries of the symmetric A^T A (4 products and 3
-# sums each), 5 cyclic Jacobi sweeps of 6 rotations on the upper triangle
-# (the angle 13; the pivot pair 4; the other two rows' pairs 2 x 2 x 3;
-# the eigenvector columns 4 x 2 x 3: 53), the smallest of 4 and the
-# division by w (7); at float32's rate, since the function is a float32
-# DLT held to its float32 plain version. Bytes: both image points read
-# (16 B), the point written (12 B); the two 3x4 matrices (96 B) once.
-OPS_DLT_POINT = 32 + 70 + 5 * 6 * 53 + 7
+# double arithmetic is its own choice): A (16 products, 16 differences),
+# the 10 entries of the symmetric A^T A (4 products and 3 sums each), the
+# smallest of 4 and the division by w (7); and a Jacobi sweep of 6
+# rotations on the upper triangle (the angle 13; the pivot pair 4; the
+# other two rows' pairs 2 x 2 x 3; the eigenvector columns 4 x 2 x 3: 53)
+# for each sweep the point needs, counted on this run's inputs by
+# `jacobi_sweeps`; at float32's rate, since the function is a float32 DLT
+# held to its float32 plain version. Bytes: both image points read (16 B),
+# the point written (12 B); the two 3x4 matrices (96 B) once.
+OPS_DLT_POINT = 32 + 70 + 7
+OPS_DLT_SWEEP = 6 * 53
 BYTES_DLT_POINT, BYTES_DLT_FIXED = 28, 96
+# The gated entry: the DLT's work and, given its point, the least work of the gate
+# stage a point: two camera transforms R X + t (2 x 18; z1 and z2 are their
+# third rows), two projections (the |z| test and select, a reciprocal, 2
+# products by 1/z, 2 by f and 2 sums with c: 2 x 9), two squared errors
+# over sigma^2 (2 x 6), two rays X - C and their norms (2 x 9), the
+# parallax cosine (3 products, 2 sums, the norms' product, the clamp, the
+# division: 8), the distance ratio with its clamp (2), the octave ratio
+# (1), the two scale tests (4), finiteness (3), the five threshold
+# compares and the AND of nine conditions (13). Bytes: the new keyframe's
+# point, match index and octave read and its point and `ok` written (33 B),
+# the neighbour's points and octaves read once (12 B a feature); the two
+# poses and two level tables once.
+OPS_GATES_POINT = 36 + 18 + 12 + 18 + 8 + 2 + 1 + 4 + 3 + 13
+BYTES_GATED_POINT, BYTES_GATED_NEIGHBOUR, BYTES_GATED_FIXED = 33, 12, 128
 # Against its plain version (float32 `eigh`, whose rounding the kernel's
 # double Jacobi does not share) on the points both accept: the relative
 # error of a point; against the plain version in float64 (the same
@@ -209,6 +232,11 @@ DLT_RTOL_F32, DLT_RTOL_F64 = 1e-2, 1e-4
 # The share of matched points whose triangulation gate may part between
 # the kernel and float32 `eigh` (a point on a threshold).
 DLT_GATE_SHARE = 0.02
+# Points whose gated `ok` may part from the plain gate stage run by torch
+# on the kernel's own points: torch's float32 ops on the card may contract
+# into FMA or sum in another order, so a value within an ulp or two of a
+# threshold can fall the other way.
+GATE_STAGE_PARTED = 2
 ATE_GATE = 0.24  # 2% of the 12 m near plane
 # The JAX reference System inserts 3 keyframes on this fixture and
 # configuration (2 at initialization, 1 by the keyframe policy).
@@ -368,19 +396,20 @@ def reset_launches():
 
     fast_kernel.launches = 0
     dlt_kernel.launches = 0
+    dlt_kernel.gated.launches = 0
 
 
-# DLT kernel launches of each path's run, read just after it is driven.
+# The DLT kernel's launches of each path's run, read just after it is
+# driven: {"dlt": the initializer's entry, "gated": the mapper's}.
 DLT_LAUNCHES = {}
 
 
-def note_dlt_launches(name: str, slam=None) -> int:
-    """Record the DLT launches of path `name` since reset_launches(); on
-    the card, a path whose mapper dispatched a keyframe (or, with `slam`
-    None, that initialized) must have launched it."""
+def note_dlt_launches(name: str) -> dict:
+    """Record both DLT entries' launches of path `name` since
+    reset_launches()."""
     from orb_slam_cuda_tpu_torch.ops import dlt_kernel
 
-    DLT_LAUNCHES[name] = n = dlt_kernel.launches
+    DLT_LAUNCHES[name] = n = {"dlt": dlt_kernel.launches, "gated": dlt_kernel.gated.launches}
     return n
 
 
@@ -390,24 +419,85 @@ def mapping_dispatches(slam) -> int:
 
 def dlt_gate(name: str, slam) -> dict:
     """Record the path's DLT launches and gate them: on the card a path
-    whose mapper dispatched a keyframe launched the kernel."""
+    whose mapper dispatched a keyframe launched the gated entry."""
     n, dispatches = note_dlt_launches(name), mapping_dispatches(slam)
     log(f"{name}: dlt launches {n} ({dispatches} keyframes dispatched to the mapper)")
     if slam.device.type != "cuda" or dispatches == 0:
         return {}
-    return {f"dlt launches > 0 ({dispatches} keyframes dispatched)": n > 0}
+    return {f"gated dlt launches > 0 ({dispatches} keyframes dispatched)": n["gated"] > 0}
+
+
+def _rel_err(a, b, mask) -> float:
+    """The largest relative error of a point of `a` against `b` on `mask`."""
+    import torch
+
+    d = torch.linalg.norm(a.double() - b.double(), dim=-1) / torch.clamp(torch.linalg.norm(b.double(), dim=-1),
+                                                                         min=1e-12)
+    return float(d[mask].max()) if bool(mask.any()) else 0.0
+
+
+def jacobi_sweeps(P1, P2, xy1, xy2, cap=8):
+    """The Jacobi sweeps each point's DLT solve needs, (N,) int64: the
+    kernel's solve (csrc/triangulate_dlt.cu) replayed in float64 on the
+    host, every point at once: A^T A of the four DLT rows, sweeps of 3
+    rounds of 2 disjoint rotations, c and s from rsqrt as the kernel takes
+    them, stopping after the first sweep whose off-diagonal entries are at
+    most double epsilon times the trace, `cap` at most."""
+    import torch
+
+    P1, P2, xy1, xy2 = (t.detach().double().cpu() for t in (P1, P2, xy1, xy2))
+    A = torch.stack([xy1[:, :1] * P1[2] - P1[0], xy1[:, 1:] * P1[2] - P1[1],
+                     xy2[:, :1] * P2[2] - P2[0], xy2[:, 1:] * P2[2] - P2[1]], 1)
+    a = A.transpose(1, 2) @ A
+    n = a.shape[0]
+    sweeps = torch.full((n,), cap, dtype=torch.int64)
+    done = torch.zeros(n, dtype=torch.bool)
+    eps = torch.finfo(torch.float64).eps
+    upper = [(0, 1), (0, 2), (0, 3), (1, 2), (1, 3), (2, 3)]
+
+    def rotation(p, q):
+        d, apq = a[:, q, q] - a[:, p, p], a[:, p, q]
+        h2 = d * d + 4 * apq * apq
+        r = torch.where(h2 > 0, torch.rsqrt(h2), torch.zeros_like(h2))
+        u = torch.where(h2 > 0, 0.5 * d.abs() * r + 0.5, torch.ones_like(h2))
+        ic = torch.rsqrt(u)
+        s = torch.where(d < 0, -apq, apq) * r * ic
+        return u * ic, s, s * ic
+
+    for sweep in range(cap):
+        for p, q, r_, s_ in ((0, 1, 2, 3), (0, 2, 1, 3), (0, 3, 1, 2)):
+            (cx, sx, tx), (cy, sy, ty) = rotation(p, q), rotation(r_, s_)
+            apq, ars = a[:, p, q].clone(), a[:, r_, s_].clone()
+            m = a[:, [p, q]][:, :, [r_, s_]]
+            lp = cx[:, None] * m[:, 0] - sx[:, None] * m[:, 1]
+            lq = sx[:, None] * m[:, 0] + cx[:, None] * m[:, 1]
+            for i, row in ((p, lp), (q, lq)):
+                a[:, i, r_] = a[:, r_, i] = cy * row[:, 0] - sy * row[:, 1]
+                a[:, i, s_] = a[:, s_, i] = sy * row[:, 0] + cy * row[:, 1]
+            a[:, p, p] -= tx * apq
+            a[:, q, q] += tx * apq
+            a[:, r_, r_] -= ty * ars
+            a[:, s_, s_] += ty * ars
+            a[:, p, q] = a[:, q, p] = a[:, r_, s_] = a[:, s_, r_] = 0.0
+        off = torch.stack([a[:, i, j].abs() for i, j in upper], 1).amax(1)
+        now = ~done & (off <= eps * a.diagonal(dim1=1, dim2=2).sum(1))
+        sweeps[now] = sweep + 1
+        done |= now
+    return sweeps
 
 
 def phase_dlt_kernel(slam):
-    """The DLT kernel on real triangulation inputs: the orbit's last
-    keyframe against its best covisible neighbour, as the mapper's
-    triangulation gives them to the kernel (all of the keyframe's
-    features; unmatched ones paired with feature 0 and gated out after).
-    The whole triangulation runs twice, with the kernel and with its plain
-    version (float32 `eigh`): the max relative error of the points both
-    accept, the count whose gate parts, and against the plain version in
-    float64. Times, the bound, and the kernel-table row (without
-    `launches`)."""
+    """Both entries of the DLT kernel on real triangulation inputs: the
+    orbit's last keyframe against its best covisible neighbour, as the
+    mapper's triangulation gives them to the kernel (all of the keyframe's
+    features; unmatched ones paired with feature 0 and gated out). The
+    whole triangulation runs twice, with the gated entry and with its
+    plain version (float32 `eigh` and the gate ops); the DLT entry runs on
+    the same pairs. Errors against float32 and float64 `eigh` on the
+    points both accept, the count whose gate parts, the gated `ok` against
+    the plain gate stage on the kernel's own points, device launches,
+    times and bounds. Returns the kernel-table rows of triangulate_dlt and
+    triangulate_gated (without `launches`)."""
     import torch
 
     from orb_slam_cuda_tpu_torch.engine import local_mapping
@@ -418,72 +508,135 @@ def phase_dlt_kernel(slam):
     kf = slam.kf_order[-1]
     nb = int(map_ops.top_covisible(slam.state.covis[kf], 1)[0])
     m = slam.mapper
-    seen, kernel = [], dlt_kernel.triangulate_dlt
+    seen, kernel = [], dlt_kernel.triangulate_gated
 
     def recorder(*args):
         seen.append(args)
         return kernel(*args)
 
     def run(fn):
-        dlt_kernel.triangulate_dlt = fn
+        dlt_kernel.triangulate_gated = fn
         try:
             return local_mapping.triangulate_with_neighbor(slam.state, kf, nb, slam.cam, m.scale_factors,
                                                            m.level_sigma2)
         finally:
-            dlt_kernel.triangulate_dlt = kernel
+            dlt_kernel.triangulate_gated = kernel
 
-    launches0 = dlt_kernel.launches
+    launches0 = (dlt_kernel.launches, dlt_kernel.gated.launches)
     got = run(recorder)
-    want = run(triangulate.triangulate_dlt_plain)
-    P1, P2, xy1, xy2 = seen[0]
+    want = run(triangulate.triangulate_gated_plain)
+    args = seen[0]
+    cam, T1, T2, xy1, uv2, idx, oct1, oct2, sig2, sf = args
+    j = torch.clamp(idx, min=0)
+    xy2 = uv2[j].contiguous()
+    K = cam.K_on(xy1.device)
+    P1, P2 = triangulate.projection_matrix(K, T1), triangulate.projection_matrix(K, T2)
+    X_dlt = dlt_kernel.triangulate_dlt(P1, P2, xy1, xy2)
+    X32 = triangulate.triangulate_dlt_plain(P1, P2, xy1, xy2)
     X64 = triangulate.triangulate_dlt_plain(P1.double(), P2.double(), xy1.double(), xy2.double())
+    matched_mask = idx >= 0
+    stage = triangulate.triangulation_gates(cam, got.xyz, T1, T2, xy1, xy2, matched_mask, oct1, oct2[j], sig2, sf)
     torch.cuda.synchronize()
     both = got.ok & want.ok
-    matched = int((want.feat_nb >= 0).sum())
-
-    def rel(a, b):
-        d = torch.linalg.norm(a.double() - b.double(), dim=-1) / torch.clamp(torch.linalg.norm(b.double(), dim=-1),
-                                                                             min=1e-12)
-        return float(d[both].max()) if bool(both.any()) else 0.0
-
-    err32, err64 = rel(got.xyz, want.xyz), rel(got.xyz, X64)
+    matched = int(matched_mask.sum())
+    err = {"gated": (_rel_err(got.xyz, want.xyz, both), _rel_err(got.xyz, X64, both)),
+           "dlt": (_rel_err(X_dlt, X32, both), _rel_err(X_dlt, X64, both))}
     parted = int((got.ok != want.ok).sum())
-    n = xy1.shape[0]
-    log(f"triangulate_dlt on keyframe {kf} against neighbour {nb}: {n} points, {matched} matched, "
-        f"{int(both.sum())} accepted by both; max relative error on those {err32:.3e} against float32 eigh "
-        f"(tolerance {DLT_RTOL_F32}), {err64:.3e} against float64 eigh (tolerance {DLT_RTOL_F64}); "
-        f"{parted} gates part (tolerance {DLT_GATE_SHARE} of {matched})")
-    check_gates("triangulate_dlt kernel", {
-        "some points accepted": bool(both.any()),
-        f"max relative error <= {DLT_RTOL_F32} against float32 eigh": err32 <= DLT_RTOL_F32,
-        f"max relative error <= {DLT_RTOL_F64} against float64 eigh": err64 <= DLT_RTOL_F64,
-        f"gates part on <= {DLT_GATE_SHARE} of matched points": parted <= DLT_GATE_SHARE * max(matched, 1),
-    })
+    stage_parted = int((stage != got.ok).sum())
 
-    def kern():
+    def gated_kern():
+        return dlt_kernel.triangulate_gated(*args)
+
+    def gated_plain():
+        return triangulate.triangulate_gated_plain(*args)
+
+    def dlt_kern():
         return dlt_kernel.triangulate_dlt(P1, P2, xy1, xy2)
 
-    def plain():
+    def dlt_plain():
         return triangulate.triangulate_dlt_plain(P1, P2, xy1, xy2)
 
-    warm = device_median_ms(kern, inner=10)
-    called = cuda_median_ms(kern)
-    plain_ms = cuda_median_ms(plain)
-    dlt_kernel.launches = launches0  # the comparison's launches are not the path's
-    by_bytes = (n * BYTES_DLT_POINT + BYTES_DLT_FIXED) / PEAK_BYTES_PER_S * 1e3
-    by_ops = n * OPS_DLT_POINT / PEAK_FP32_OPS_PER_S * 1e3
-    bound_ms, bound_by = max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations")
-    log(f"triangulate_dlt per call ({n} points): device {warm:.4f} ms warm (10 calls a pair of events); as "
-        f"called {called:.4f} ms; plain (float32 eigh) {plain_ms:.4f} ms; bound {bound_ms:.5f} ms by {bound_by} "
-        f"({by_bytes:.5f} by bytes, {by_ops:.5f} by {OPS_DLT_POINT} FP32 operations a point); share of bound "
-        f"reached {bound_ms / warm:.3f}; library call: none (no one PyTorch call triangulates, and eigh reads "
-        f"back)")
-    return {"name": "triangulate_dlt", "route": "cuda", "source": DLT_SOURCE,
-            "replaces": "orb_slam_cuda_tpu/geometry/triangulate.py:37",
-            "max_abs_err": float((got.xyz - want.xyz)[both].abs().max()) if bool(both.any()) else 0.0,
-            "max_rel_err": err32, "max_rel_err_f64": err64, "gates_parted": parted, "points": n,
-            "ms": warm, "as_called_ms": called, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None}
+    # Device work of the whole triangulation with the kernel, with its plain
+    # version and with a stand-in that launches nothing: what each puts on
+    # the card after the match.
+    def nothing(*a):
+        return (torch.empty((a[3].shape[0], 3), device=xy1.device),
+                torch.empty((a[3].shape[0],), dtype=torch.bool, device=xy1.device))
+
+    calls0 = dlt_kernel.gated.launches
+    events = {k: device_event_names(lambda: run(fn))
+              for k, fn in (("kernel", kernel), ("plain", triangulate.triangulate_gated_plain), ("none", nothing))}
+    after = {k: len(events[k]) - len(events["none"]) for k in ("kernel", "plain")}
+    seen_by_name = sum("triangulate_gated" in e for e in events["kernel"])
+    sweeps = jacobi_sweeps(P1, P2, xy1, xy2)
+    sweep_counts = {int(k): int(v) for k, v in zip(*torch.unique(sweeps, return_counts=True))}
+    wrapper_calls = dlt_kernel.gated.launches - calls0  # 2: the profile's warm-up call and the profiled one
+    n, n2 = xy1.shape[0], uv2.shape[0]
+    log(f"triangulate_gated on keyframe {kf} against neighbour {nb}: {n} points, {matched} matched, "
+        f"{int(got.ok.sum())} accepted ({int(want.ok.sum())} by the plain version, {int(both.sum())} by both); "
+        f"max relative error on those {err['gated'][0]:.3e} against float32 eigh (tolerance {DLT_RTOL_F32}), "
+        f"{err['gated'][1]:.3e} against float64 eigh (tolerance {DLT_RTOL_F64}); {parted} gates part from the "
+        f"plain version's (tolerance {DLT_GATE_SHARE} of {matched}), {stage_parted} from the plain gate stage on "
+        f"the kernel's own points (tolerance {GATE_STAGE_PARTED}); device launches after the match "
+        f"(torch.profiler, the whole triangulation less the match's {len(events['none'])}): kernel "
+        f"{after['kernel']} ({seen_by_name} named triangulate_gated), plain version {after['plain']}")
+    log(f"triangulate_dlt on the same {n} pairs: max relative error on the points both accept "
+        f"{err['dlt'][0]:.3e} against float32 eigh, {err['dlt'][1]:.3e} against float64 eigh")
+    check_gates("triangulate_dlt kernel", {
+        "some points accepted": bool(both.any()),
+        **{f"{e}: max relative error <= {DLT_RTOL_F32} against float32 eigh": err[e][0] <= DLT_RTOL_F32
+           for e in err},
+        **{f"{e}: max relative error <= {DLT_RTOL_F64} against float64 eigh": err[e][1] <= DLT_RTOL_F64
+           for e in err},
+        f"gates part on <= {DLT_GATE_SHARE} of matched points": parted <= DLT_GATE_SHARE * max(matched, 1),
+        f"gated ok equal to the plain gate stage on its points but for <= {GATE_STAGE_PARTED}":
+            stage_parted <= GATE_STAGE_PARTED,
+        f"one device launch after the match ({after['kernel']} profiled, {wrapper_calls} wrapper launches in 2 "
+        f"calls, {seen_by_name} named triangulate_gated)":
+            after["kernel"] == 1 and seen_by_name == 1 and wrapper_calls == 2,
+    })
+
+    flush = torch.empty(128 * 1024 * 1024 // 4, device=xy1.device)  # 128 MB > the 50 MB L2
+    rows = []
+    levels = sig2.shape[0]
+    dlt_ops = n * OPS_DLT_POINT + int(sweeps.sum()) * OPS_DLT_SWEEP
+    log(f"DLT solve on these {n} pairs: Jacobi sweeps needed {sweep_counts} (points by sweeps; {dlt_ops / n:.1f} "
+        f"float32 operations a point)")
+    bounds = {
+        "triangulate_dlt": ((n * BYTES_DLT_POINT + BYTES_DLT_FIXED), dlt_ops),
+        "triangulate_gated": (n * BYTES_GATED_POINT + n2 * BYTES_GATED_NEIGHBOUR + BYTES_GATED_FIXED + 8 * levels,
+                              dlt_ops + n * OPS_GATES_POINT),
+    }
+    for name, kern, plain, e in (("triangulate_dlt", dlt_kern, dlt_plain, "dlt"),
+                                 ("triangulate_gated", gated_kern, gated_plain, "gated")):
+        warm = device_median_ms(kern, inner=10)
+        cold = device_median_ms(kern, before=flush.zero_)
+        called = cuda_median_ms(kern)
+        plain_ms = cuda_median_ms(plain)
+        nbytes, ops = bounds[name]
+        by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        by_ops = ops / PEAK_FP32_OPS_PER_S * 1e3
+        bound_ms, bound_by = max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations")
+        log(f"{name} per call ({n} points): device {warm:.4f} ms warm (10 calls a pair of events), {cold:.4f} ms "
+            f"cold L2 (1 call a pair); as called {called:.4f} ms; plain {plain_ms:.4f} ms; bound {bound_ms:.6f} ms "
+            f"by {bound_by} ({by_bytes:.6f} by {nbytes} bytes, {by_ops:.6f} by {ops / n:.1f} FP32 operations a "
+            f"point); share of bound reached {bound_ms / warm:.4f} warm; library call: none (no one PyTorch call "
+            f"triangulates, and eigh reads back)")
+        ref = want.xyz if e == "gated" else X32
+        pts = got.xyz if e == "gated" else X_dlt
+        rows.append({"name": name, "route": "cuda", "source": DLT_SOURCE,
+                     "replaces": ("orb_slam_cuda_tpu/geometry/triangulate.py:37" if e == "dlt" else
+                                  "orb_slam_cuda_tpu/engine/local_mapping.py:102"),
+                     "max_abs_err": float((pts - ref)[both].abs().max()) if bool(both.any()) else 0.0,
+                     "max_rel_err": err[e][0], "max_rel_err_f64": err[e][1], "points": n,
+                     "jacobi_sweeps": sweep_counts,
+                     "ms": warm, "cold_l2_ms": cold,
+                     "as_called_ms": called, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": None})
+    rows[1].update(gates_parted=parted, stage_parted=stage_parted, device_launches_after_match=after["kernel"],
+                   plain_device_launches_after_match=after["plain"])
+    dlt_kernel.launches, dlt_kernel.gated.launches = launches0  # the comparison's launches are not the path's
+    return rows
 
 
 def kitti_camera():
@@ -618,22 +771,27 @@ def check_against_cpu(frame0):
     log(f"extractor cuda vs cpu: level-0 keypoints equal, identical descriptor rows {rows:.4f}")
 
 
-def count_device_launches(fn) -> int:
-    """Kernels, copies and memsets that one call of `fn` puts on the card
-    (torch.profiler's device events)."""
+def device_event_names(fn) -> list:
+    """The names of the kernels, copies and memsets that one call of `fn`
+    puts on the card (torch.profiler over host and device)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    n = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
-    if n == 0:
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not names:
         raise AssertionError("torch.profiler recorded no device event")
-    return n
+    return names
+
+
+def count_device_launches(fn) -> int:
+    """Kernels, copies and memsets that one call of `fn` puts on the card."""
+    return len(device_event_names(fn))
 
 
 def phase_extract_launches(frame0):
@@ -833,6 +991,7 @@ def phase_main_path(cam, poses, frames, device=None, vocab=None):
     total_s = time.perf_counter() - t_all
     launches = fast_kernel.launches
     dlt = note_dlt_launches("orbit")
+    dispatches = mapping_dispatches(slam)
 
     ts, est = camera_centers(slam.get_trajectory())
     gt_by_t = {round(i * 0.1, 6): np.linalg.inv(T)[:3, 3] for i, T in enumerate(poses)}
@@ -848,7 +1007,7 @@ def phase_main_path(cam, poses, frames, device=None, vocab=None):
         f"{status}; tracked_ratio {slam.tracked_ratio():.4f}, keyframes {slam.stats.n_keyframes} "
         f"(live {len(slam.kf_order)}), points {int(st.mp_valid.sum())}, lost {slam.stats.n_lost}, "
         f"relocalized {slam.stats.n_reloc}, ATE {ate:.4f} m, fast launches {launches}, dlt launches {dlt} "
-        f"({mapping_dispatches(slam)} keyframes dispatched to the mapper)")
+        f"({dispatches} keyframes dispatched to the mapper)")
     log(f"frames {MEASURE_FROM}-{n - 1}: {fps:.2f} fps (the final flush of {flush_ms:.2f} ms included), "
         f"p50 {p50:.2f} ms, p99 {p99:.2f} ms, max {window.max():.2f} ms")
     for csv in ("times.csv", "timesTracking.csv"):
@@ -870,7 +1029,8 @@ def phase_main_path(cam, poses, frames, device=None, vocab=None):
         f"keyframes >= {MIN_KEYFRAMES}": slam.stats.n_keyframes >= MIN_KEYFRAMES,
         "tracking never failed (lost 0, relocalized 0)": slam.stats.n_lost == 0 and slam.stats.n_reloc == 0,
         f"fast launches == {want_launches}": launches == want_launches,
-        "dlt launched (the initializer and the mapper triangulate)": dlt > 0 or not on_gpu,
+        "dlt launched (the initializer triangulates)": dlt["dlt"] > 0 or not on_gpu,
+        f"gated dlt launched ({dispatches} keyframes dispatched)": dlt["gated"] > 0 or not on_gpu or dispatches == 0,
         f"map tensors on {slam.device} (off: {off_device})": not off_device,
         f"ATE <= {ATE_GATE}": ate <= ATE_GATE,
         "last pose finite": pose is not None and bool(np.isfinite(pose).all()),
@@ -943,12 +1103,13 @@ def graphed_against_eager(name, make, track, frames, dt, want_launches, profiled
         log(f"programs, {name}, {mode}: {len(frames)} frames, tracked {slam.tracked_ratio():.4f}, keyframes "
             f"{slam.stats.n_keyframes}; frames 0-{timed - 1}: host {ms.mean():.2f} ms a frame "
             f"({1e3 / ms.mean():.2f} fps), p50 {p50:.2f}, p99 {p99:.2f} ms{profiled_line}; "
-            f"fast launches {fast_kernel.launches}, dlt launches {dlt_kernel.launches}")
+            f"fast launches {fast_kernel.launches}, dlt launches {dlt_kernel.launches}, gated dlt launches "
+            f"{dlt_kernel.gated.launches}")
         calls = program_summary(f"programs, {name}, {mode},", slam)
         stats = slam.program_stats()
         keyframe_programs = {k: v for k, v in stats.items() if k in KEYFRAME_PROGRAMS}
         runs[mode] = dict(vecs=vecs, traj=traj, launches=fast_kernel.launches, calls=calls,
-                          dlt=dlt_kernel.launches, dispatches=mapping_dispatches(slam),
+                          dlt=(dlt_kernel.launches, dlt_kernel.gated.launches), dispatches=mapping_dispatches(slam),
                           policy_keyframes=slam.stats.n_keyframes - (1 if slam.cfg.sensor.value else 2),
                           kf_calls=sum(v["captures"] + v["replays"] for v in keyframe_programs.values()),
                           kf_replays=sum(v["replays"] for v in keyframe_programs.values()),
@@ -968,7 +1129,7 @@ def graphed_against_eager(name, make, track, frames, dt, want_launches, profiled
             g["programs"]["map_dispatch"]["captures"] + g["programs"]["map_dispatch"]["replays"] == g["dispatches"],
     }
     if g["policy_keyframes"] > 0:  # the mapper triangulated
-        gates["dlt launched"] = g["dlt"] > 0
+        gates["gated dlt launched"] = g["dlt"][1] > 0
     if g["policy_keyframes"] > 1:  # the keyframe programs were called again with a captured key
         gates[f"graphed: keyframe programs replayed ({g['policy_keyframes']} keyframes inserted by the "
               f"policy)"] = g["kf_replays"] > 0
@@ -1192,7 +1353,7 @@ def drive(slam, track, frames, dt):
     poses, the frame times in ms, the relocalization calls as (frame,
     accepting stage, tracked), the share of valid features with a depth per
     tracked frame, the seconds and the FAST launches (the DLT launches are
-    left in dlt_kernel.launches)."""
+    left in dlt_kernel's counts)."""
     from orb_slam_cuda_tpu_torch.ops import fast_kernel
 
     poses, frame_ms, reloc_calls, depth_share = [], [], [], []
@@ -1653,7 +1814,7 @@ def phase_cli_path(device=None):
             "tracked >= 0.85 of the frames from the first pose on": tracked_after >= 0.85,
             f"ATE sim(3) <= {CLI_ATE_GATE:.4f} m": ate <= CLI_ATE_GATE,
             f"fast launches == {want} (frames read)": launches == want and len(rows) == CLI_FRAMES,
-            "dlt launched (keyframes inserted)": dlt > 0 or not on_gpu or int(rows[-1]["keyframes"]) < 3,
+            "gated dlt launched (keyframes inserted)": dlt["gated"] > 0 or not on_gpu or int(rows[-1]["keyframes"]) < 3,
             "last pose finite": bool(np.isfinite(last).all()),
             "shutdown line printed": any(line.startswith("tracked ") for line in lines),
         })
@@ -1698,7 +1859,7 @@ def _stereo_worker(queue, device, n_frames):
         t0 = time.perf_counter()
         launches = phase_stereo_path(*make_stereo_fixture(device, n_frames),
                                      device=None if device == "cuda" else device)
-        queue.put(dict(launches=launches, dlt=DLT_LAUNCHES.get("stereo path", 0),
+        queue.put(dict(launches=launches, dlt=DLT_LAUNCHES.get("stereo path", {"dlt": 0, "gated": 0}),
                        seconds=time.perf_counter() - t0, log=out.getvalue()))
     except BaseException:
         queue.put(dict(error=traceback.format_exc(), log=out.getvalue()))
@@ -1777,7 +1938,7 @@ def main() -> int:
     timed("kernels", phase_extract_launches, frames[0])
     vocab = timed("vocabulary", phase_vocabulary)
     launches, orbit_slam = timed("orbit path", phase_main_path, cam, poses, frames, vocab=vocab)
-    dlt_row = timed("kernels", phase_dlt_kernel, orbit_slam)
+    dlt_row, gated_row = timed("kernels", phase_dlt_kernel, orbit_slam)
     timed("repeatability", phase_repeatability, orbit_slam)
     timed("programs", phase_programs, cam, frames, vocab, rgbd)
     del frames, vocab, orbit_slam
@@ -1804,7 +1965,9 @@ def main() -> int:
     print(json.dumps({"entry_points_off_the_main_path": [dict(pair_row, launches=0)]}), flush=True)
     log(f"dlt launches by path: {DLT_LAUNCHES}")
     print(json.dumps({"kernels": [dict(pyramid_row, launches=launches),
-                                  dict(dlt_row, launches=sum(DLT_LAUNCHES.values()))]}), flush=True)
+                                  dict(dlt_row, launches=sum(n["dlt"] for n in DLT_LAUNCHES.values())),
+                                  dict(gated_row, launches=sum(n["gated"] for n in DLT_LAUNCHES.values()))]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -20,7 +20,7 @@ from ..geometry import camera as cam_mod
 from ..geometry import se3, triangulate
 from ..geometry.camera import Camera
 from ..matching import search
-from ..ops import hamming
+from ..ops import dlt_kernel, hamming
 from ..ops.segsum import last_writes
 from ..slam_map import MapConfig, MapState, keyframe_db
 from ..slam_map import ops as map_ops
@@ -124,38 +124,8 @@ def triangulate_with_neighbor(state: MapState, kf_new, kf_nb, cam: Camera,
         F12, sig2, epipole_uv=epipole2, scale_factors=sf,
         f1_has_point=has1, f2_has_point=has2,
     )
-    ok = m.idx >= 0
-    j = torch.clamp(m.idx, min=0)
-    xy1 = uv1
-    xy2 = uv2[j]
-    X = triangulate.triangulate_dlt(
-        triangulate.projection_matrix(K, T1), triangulate.projection_matrix(K, T2), xy1, xy2
-    )
-    z1, z2, cosp = triangulate.cheirality_and_parallax(X, T1, T2)
-
-    def reproj_err(T, xy):
-        uv = cam_mod.project(cam, se3.transform(T, X))
-        return torch.sum((uv - xy) ** 2, dim=-1)
-
-    L = sig2.shape[0]
-    oct1 = torch.clamp(oct1_raw.long(), 0, L - 1)
-    oct2 = torch.clamp(oct2_raw[j].long(), 0, L - 1)
-    e1 = reproj_err(T1, xy1) / sig2[oct1]
-    e2 = reproj_err(T2, xy2) / sig2[oct2]
-
-    C2w = -T2[:3, :3].T @ T2[:3, 3]
-    d1 = torch.linalg.norm(X - C1w[None, :], dim=-1)
-    d2 = torch.linalg.norm(X - C2w[None, :], dim=-1)
-    ratio_dist = d1 / torch.clamp(d2, min=1e-9)
-    ratio_oct = sf[oct1] / sf[oct2]
-    ratio_factor = 1.5 * sf[1]
-    scale_ok = (ratio_dist < ratio_oct * ratio_factor) & (ratio_dist * ratio_factor > ratio_oct)
-
-    finite = torch.all(torch.isfinite(X), dim=-1)
-    good = (
-        ok & finite & (z1 > 0) & (z2 > 0) & (cosp < 0.9998)
-        & (e1 < 5.991) & (e2 < 5.991) & scale_ok
-    )
+    # Everything after the match: one launch of the DLT kernel's gated entry on the card.
+    X, good = dlt_kernel.triangulate_gated(cam, T1, T2, uv1, uv2, m.idx, oct1_raw, oct2_raw, sig2, sf)
     feat_new = torch.arange(X.shape[0], dtype=torch.int64, device=dev)
     return TriangulationResult(xyz=X, ok=good, feat_new=feat_new, feat_nb=m.idx)
 

@@ -36,7 +36,7 @@ again, and the pool reuses their memory. Once no graph of a pool is left
 (a System's graphs go with it), the next capture opens a new pool: the
 old one keeps only what a capture allocated for good (cuBLAS's workspace
 for the capture stream), which PyTorch cannot hand to another capture. Kernel launches that a graph
-recorded are counted once per replay (the `launches` of each module in
+recorded are counted once per replay (the `launches` of each entry in
 `KERNELS`); a capture counts none. `captures`, `replays` and
 `capture_s` sum every Program's counts, as `launches` does for the kernel.
 """
@@ -54,9 +54,10 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from ..ops import dlt_kernel, fast_kernel
 
-# The hand-written kernels whose wrappers count launches (`launches`, and
-# `recorded` under capture).
-KERNELS = (fast_kernel, dlt_kernel)
+# The launch counts of the hand-written kernels' entries (`launches`, and
+# `recorded` under capture): the FAST and DLT modules' own and the DLT
+# kernel's gated entry's.
+KERNELS = (fast_kernel, dlt_kernel, dlt_kernel.gated)
 
 
 class CaptureError(RuntimeError):
@@ -216,7 +217,7 @@ class _Graph(NamedTuple):
     inputs: list  # static input tensors, in argument order
     out_spec: object
     outputs: list  # the graph's output tensors
-    launches: tuple  # launches the graph recorded, one count per module of KERNELS
+    launches: tuple  # launches the graph recorded, one count per entry of KERNELS
 
 
 class Program:

@@ -6,6 +6,8 @@ from __future__ import annotations
 import torch
 
 from ..ops import dlt_kernel
+from . import camera as cam_mod
+from . import se3
 
 
 def triangulate_dlt(P1, P2, xy1, xy2):
@@ -33,6 +35,53 @@ def triangulate_dlt_plain(P1, P2, xy1, xy2):
     w = Xh[..., 3]
     w = torch.where(torch.abs(w) < 1e-12, torch.full_like(w, 1e-12), w)
     return Xh[..., :3] / w[..., None]
+
+
+def triangulate_gated_plain(cam, T1, T2, xy1, uv2, idx, oct1, oct2, sig2, sf):
+    """The plain version: the new keyframe's points xy1 (N,2) and octaves
+    oct1 (N,), each matched by `idx` (-1 unmatched; triangulated with
+    feature 0 and gated out) to the neighbour's points uv2 and octaves
+    oct2; world-to-camera poses T1, T2; the level tables sig2 (sigma^2)
+    and sf (scale factors). The DLT point of each pair (`eigh`, which on
+    the card reads a status back) and `triangulation_gates`."""
+    K = cam.K_on(xy1.device)
+    j = torch.clamp(idx, min=0)
+    xy2 = uv2[j]
+    X = triangulate_dlt_plain(projection_matrix(K, T1), projection_matrix(K, T2), xy1, xy2)
+    return X, triangulation_gates(cam, X, T1, T2, xy1, xy2, idx >= 0, oct1, oct2[j], sig2, sf)
+
+
+def triangulation_gates(cam, X, T1, T2, xy1, xy2, matched, oct1, oct2, sig2, sf):
+    """CreateNewMapPoints' checks of triangulated points X (N,3) seen at
+    xy1, xy2 (N,2) on octaves oct1, oct2 (N,): matched, finite, in front of
+    both cameras, enough parallax, both reprojection chi2 under 5.991 and
+    the distance ratio consistent with the octave ratio. Returns ok (N,)."""
+    z1, z2, cosp = cheirality_and_parallax(X, T1, T2)
+
+    def reproj_err(T, xy):
+        uv = cam_mod.project(cam, se3.transform(T, X))
+        return torch.sum((uv - xy) ** 2, dim=-1)
+
+    L = sig2.shape[0]
+    oct1 = torch.clamp(oct1.long(), 0, L - 1)
+    oct2 = torch.clamp(oct2.long(), 0, L - 1)
+    e1 = reproj_err(T1, xy1) / sig2[oct1]
+    e2 = reproj_err(T2, xy2) / sig2[oct2]
+
+    C1w = -T1[:3, :3].T @ T1[:3, 3]
+    C2w = -T2[:3, :3].T @ T2[:3, 3]
+    d1 = torch.linalg.norm(X - C1w[None, :], dim=-1)
+    d2 = torch.linalg.norm(X - C2w[None, :], dim=-1)
+    ratio_dist = d1 / torch.clamp(d2, min=1e-9)
+    ratio_oct = sf[oct1] / sf[oct2]
+    ratio_factor = 1.5 * sf[1]
+    scale_ok = (ratio_dist < ratio_oct * ratio_factor) & (ratio_dist * ratio_factor > ratio_oct)
+
+    finite = torch.all(torch.isfinite(X), dim=-1)
+    return (
+        matched & finite & (z1 > 0) & (z2 > 0) & (cosp < 0.9998)
+        & (e1 < 5.991) & (e2 < 5.991) & scale_ok
+    )
 
 
 def projection_matrix(K, T):

@@ -24,7 +24,15 @@ neighbour list gives the same state bit for bit as the unpadded one; the
 sync-free `nonzero_fixed` equals torch.nonzero's first `size` entries; a
 changed keyframe-slot tensor changes the result and not the program key;
 a young map's keyframes, with or without probation points, share one
-dispatch key."""
+dispatch key.
+
+The mapper's triangulation after the match (the DLT kernel's gated entry
+on the card, `triangulate_gated_plain` here) equals the JAX package's
+`triangulate_with_neighbor` on every neighbour of the fixture (points
+within 1e-3, `ok` exact) and, on crafted inputs, the JAX package's own
+lines after the match on the degenerate cases: unmatched, behind both
+cameras, zero parallax, |w| under the 1e-12 clamp, and the scale check's
+two edges."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -35,17 +43,20 @@ from hypothesis import strategies as hs
 
 from orb_slam_cuda_tpu.engine import local_mapping as jlm
 from orb_slam_cuda_tpu.geometry import camera as jcam
+from orb_slam_cuda_tpu.geometry import se3 as jse3
+from orb_slam_cuda_tpu.geometry import triangulate as jtri
 from orb_slam_cuda_tpu.slam_map import state as jst
 from orb_slam_cuda_tpu_torch.engine import Sensor, System, SystemConfig, programs
 from orb_slam_cuda_tpu_torch.engine import local_mapping as tlm
 from orb_slam_cuda_tpu_torch.engine import loop_closing as tlc
 from orb_slam_cuda_tpu_torch.geometry import sim3
+from orb_slam_cuda_tpu_torch.geometry import triangulate as ttri
 from orb_slam_cuda_tpu_torch.geometry.camera import Camera
 from orb_slam_cuda_tpu_torch.slam_map import keyframe_db as tdb
 from orb_slam_cuda_tpu_torch.slam_map import ops as tops
 from orb_slam_cuda_tpu_torch.slam_map import state as tst
 from orb_slam_cuda_tpu_torch.utils import convert
-from torch_mapping_fixture import CAM_ARGS, K, N, N_LIVE, P, arrays
+from torch_mapping_fixture import CAM_ARGS, DEGENERATE_CASES, K, N, N_LIVE, P, arrays, degenerate
 from torch_parity import _SyncSpy, assert_same, to_np
 
 torch.set_num_threads(2)
@@ -157,6 +168,79 @@ def test_nonzero_fixed_equals_torch_nonzero(n, size, density, seed):
     assert torch.equal(tlm.nonzero_fixed(mask, size), want)
 
 
+@pytest.mark.parametrize("nb", range(N_LIVE - 1))
+def test_triangulate_with_neighbor_equals_jax(fixture, nb):
+    fx = fixture
+    ts = fx["ts"]
+    j = jlm.triangulate_with_neighbor(_jstate(ts), np.int32(NEW), np.int32(nb), fx["jcam"],
+                                      jnp.asarray(SF, jnp.float32), jnp.asarray(SIG2, jnp.float32))
+    t = tlm.triangulate_with_neighbor(ts, NEW, nb, fx["tcam"], torch.tensor(SF), torch.tensor(SIG2))
+    assert_same(j.feat_nb, t.feat_nb, what="feat_nb")
+    assert_same(j.ok, t.ok, what="ok")
+    assert int(t.ok.sum()) > 20
+    matched = t.feat_nb >= 0
+    assert_same(to_np(j.xyz)[to_np(matched)], t.xyz[matched], rtol=1e-3, atol=1e-5, what="xyz")
+
+
+def test_gated_wrapper_on_cpu_takes_the_plain_version(fixture):
+    from orb_slam_cuda_tpu_torch.ops import dlt_kernel
+
+    ts = fixture["ts"]
+    args = (fixture["tcam"], ts.kf_pose[NEW], ts.kf_pose[2], ts.kf_uv[NEW], ts.kf_uv[2],
+            torch.arange(N, dtype=torch.int64) % 7 - 1, ts.kf_oct[NEW], ts.kf_oct[2], torch.tensor(SIG2),
+            torch.tensor(SF))
+    before = (dlt_kernel.launches, dlt_kernel.gated.launches, dlt_kernel.gated.recorded)
+    xyz, ok = dlt_kernel.triangulate_gated(*args)
+    assert (dlt_kernel.launches, dlt_kernel.gated.launches, dlt_kernel.gated.recorded) == before
+    want = ttri.triangulate_gated_plain(*args)
+    assert torch.equal(xyz, want[0]) and torch.equal(ok, want[1])
+
+
+def _jax_after_match(cam_args, T1, T2, xy1, uv2, idx, oct1, oct2):
+    """The JAX package's triangulate_with_neighbor after the match
+    (orb_slam_cuda_tpu/engine/local_mapping.py:102-139), on given inputs."""
+    cam = jcam.Camera.create(**cam_args)
+    T1, T2, xy1, uv2, oct1, oct2 = (jnp.asarray(a) for a in (T1, T2, xy1, uv2, oct1, oct2))
+    idx = jnp.asarray(idx.astype(np.int32))
+    ok = idx >= 0
+    j = jnp.clip(idx, 0)
+    xy2 = uv2[j]
+    X = jtri.triangulate_dlt(jtri.projection_matrix(cam.K, T1), jtri.projection_matrix(cam.K, T2), xy1, xy2)
+    z1, z2, cosp = jtri.cheirality_and_parallax(X, T1, T2)
+
+    def reproj_err(T, xy):
+        return jnp.sum((jcam.project(cam, jse3.transform(T, X)) - xy) ** 2, axis=-1)
+
+    sig2 = jnp.asarray(SIG2, jnp.float32)
+    e1 = reproj_err(T1, xy1) / sig2[jnp.clip(oct1, 0, sig2.shape[0] - 1)]
+    e2 = reproj_err(T2, xy2) / sig2[jnp.clip(oct2[j], 0, sig2.shape[0] - 1)]
+    C1w = -T1[:3, :3].T @ T1[:3, 3]
+    C2w = -T2[:3, :3].T @ T2[:3, 3]
+    ratio_dist = (jnp.linalg.norm(X - C1w[None, :], axis=-1)
+                  / jnp.maximum(jnp.linalg.norm(X - C2w[None, :], axis=-1), 1e-9))
+    sf = jnp.asarray(SF, jnp.float32)
+    ratio_oct = sf[jnp.clip(oct1, 0, sf.shape[0] - 1)] / sf[jnp.clip(oct2[j], 0, sf.shape[0] - 1)]
+    ratio_factor = 1.5 * jnp.float32(SF[1])
+    scale_ok = (ratio_dist < ratio_oct * ratio_factor) & (ratio_dist * ratio_factor > ratio_oct)
+    finite = jnp.all(jnp.isfinite(X), axis=-1)
+    good = (ok & finite & (z1 > 0) & (z2 > 0) & (cosp < 0.9998) & (e1 < 5.991) & (e2 < 5.991) & scale_ok)
+    return np.asarray(X), np.asarray(good)
+
+
+@pytest.mark.parametrize("case", DEGENERATE_CASES)
+def test_triangulate_gated_plain_degenerate_cases_equal_jax(case):
+    T1, T2, xy1, uv2, idx, oct1, oct2, expect = degenerate(case)
+    want_X, want_ok = _jax_after_match(CAM_ARGS, T1, T2, xy1, uv2, idx, oct1, oct2)
+    t = lambda a: torch.as_tensor(a)  # noqa: E731
+    X, ok = ttri.triangulate_gated_plain(Camera.create(**CAM_ARGS), t(T1), t(T2), t(xy1), t(uv2), t(idx), t(oct1),
+                                         t(oct2), torch.tensor(SIG2), torch.tensor(SF))
+    assert ok.tolist() == expect and want_ok.tolist() == expect
+    if case == "w_clamped":
+        assert torch.equal(X, torch.tensor([[1e12, 0.0, 0.0]] * 3)) and np.array_equal(want_X, to_np(X))
+    elif case in ("behind", "scale_edge"):  # well posed: the points themselves
+        assert_same(want_X, X, rtol=1e-3, atol=1e-4, what=f"{case} xyz")
+
+
 def _mapper(device="cpu"):
     return tlm.LocalMapper(CFG_T, Camera.create(**CAM_ARGS), n_triangulate_neighbors=4, n_fuse_neighbors=8,
                            lba_local=5, lba_fixed=2, lba_points=256, device=device)
@@ -171,21 +255,22 @@ def _db(ts):
 
 @pytest.fixture
 def dlt_stand_in(monkeypatch):
-    """On the card triangulate_dlt launches the DLT kernel (no eigen-solver,
-    nothing read back); here its plain version (`eigh`) stands in, run with
+    """On the card the mapper's triangulation after the match is one launch
+    of the DLT kernel's gated entry (no eigen-solver, nothing read back);
+    here its plain version (`eigh` and the gate ops) stands in, run with
     the spy suspended. Returns the list of its calls."""
     from torch.utils._python_dispatch import _disable_current_modes
 
     from orb_slam_cuda_tpu_torch.ops import dlt_kernel
 
-    calls, plain = [], dlt_kernel.triangulate_dlt
+    calls, plain = [], dlt_kernel.triangulate_gated
 
     def stand_in(*args):
-        calls.append(args[2].shape)
+        calls.append(args[3].shape)
         with _disable_current_modes():
             return plain(*args)
 
-    monkeypatch.setattr(dlt_kernel, "triangulate_dlt", stand_in)
+    monkeypatch.setattr(dlt_kernel, "triangulate_gated", stand_in)
     return calls
 
 
@@ -223,7 +308,7 @@ def test_keyframe_programs_read_nothing_back(fixture, dlt_stand_in, program):
         m.kf_cull_redundancy = 0.5  # so that the finish erases a keyframe
         st, _ = m.finish_keyframe(st, _db(ts), pending, list(recent), kf_order)
         assert len(kf_order) < N_LIVE, "no keyframe culled: the erase program did not run"
-        assert len(dlt_stand_in) == 4  # one DLT a triangulation neighbour, through the kernel's wrapper
+        assert len(dlt_stand_in) == 4  # one gated DLT a triangulation neighbour, through the kernel's wrapper
     elif program in ("kf_insert", "depth_points"):
         slam = _insert_system()
         spy = _spy_on(getattr(slam, f"_{program}_fn"))

@@ -4,7 +4,9 @@ already in the map (bound in every keyframe that sees them, so the
 keyframes are covisible), the rest seen but unbound (what triangulation
 and fusion work on). Descriptors and vocabulary nodes follow the point,
 image points are exact projections, so both packages' eigen-solvers
-agree to float rounding."""
+agree to float rounding. Also the triangulation gate's degenerate cases
+(`degenerate`), which the CPU tests hold against the JAX package and the
+card tests hold the kernel to."""
 
 from __future__ import annotations
 
@@ -62,3 +64,53 @@ def arrays(seed: int = 0) -> dict:
         mp_first_kf=np.where(mp_valid, 0, -1).astype(np.int32),
         mp_visible=np.ones(P, np.float32), mp_found=np.ones(P, np.float32),
     )
+
+
+DEGENERATE_CASES = ("unmatched", "behind", "zero_parallax", "w_clamped", "scale_edge")
+
+
+def degenerate(case):
+    """(T1, T2, xy1, uv2, idx, oct1, oct2, the ok expected) of one of the
+    triangulation gate's degenerate cases, in the fixture's camera: two
+    cameras 0.5 m apart and three points, each case in DEGENERATE_CASES."""
+    fx, cx, cy = CAM_ARGS["fx"], CAM_ARGS["cx"], CAM_ARGS["cy"]
+    T1, T2 = np.eye(4, dtype=np.float32), np.eye(4, dtype=np.float32)
+    T2[0, 3] = -0.5  # the second camera 0.5 m to the right
+    if case == "scale_edge":
+        # Equal octaves, so the distance ratio must lie within (1/1.8, 1.8):
+        # points with d1/d2 1% inside and 1% outside each edge.
+        def point(ratio):
+            lo, hi = 0.5, 60.0  # along z = 0.1, d1/d2 falls from 5.1 to 1 with x past the second camera
+            for _ in range(200):
+                mid = 0.5 * (lo + hi)
+                r = np.hypot(mid, 0.1) / np.hypot(mid - 0.5, 0.1)
+                lo, hi = (mid, hi) if r > ratio else (lo, mid)
+            return [lo, 0.0, 0.1]
+
+        # The third mirrors the first about x = 0.25: d1/d2 1% inside 1/1.8.
+        X = np.array([point(1.8 * 0.99), point(1.8 * 1.01), [0.5 - point(1.8 * 0.99)[0], 0, 0.1]], np.float64)
+        expect = [True, False, True]
+    elif case == "behind":
+        X = np.array([[1.0, 0.5, -10.0], [-2.0, 0.3, -4.0], [0.4, -0.2, -25.0]])
+        expect = [False] * 3
+    else:
+        X = np.array([[1.0, 0.5, 10.0], [-2.0, 0.3, 4.0], [0.4, -0.2, 25.0]])
+        expect = [False] * 3
+    if case == "zero_parallax":
+        T2 = T1.copy()
+    if case == "w_clamped":  # A = 0: eigh gives e1, w = 0, X = (1e12, 0, 0)
+        T1[:] = 0
+        T2[:] = 0
+    n = X.shape[0]
+    Xh = np.concatenate([X, np.ones((n, 1))], 1)
+    K = np.array([[fx, 0, cx], [0, fx, cy], [0, 0, 1]])
+
+    def proj(T):
+        y = Xh @ (K @ (np.eye(4, dtype=np.float32) if case == "w_clamped" else T)[:3]).T
+        return (y[:, :2] / y[:, 2:]).astype(np.float32)
+
+    xy1, xy2 = proj(T1), proj(T2)
+    uv2 = xy2[::-1].copy()  # the neighbour's features in another order
+    idx = np.arange(n)[::-1].copy() if case != "unmatched" else np.full(n, -1)
+    oct_ = np.array([0, 3, -1] if case != "scale_edge" else [2, 2, 99], np.int32)[:n]
+    return T1, T2, xy1, uv2, idx.astype(np.int64), oct_, oct_[::-1].copy(), expect
