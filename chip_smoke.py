@@ -4,9 +4,10 @@
 Phases, each printing its own lines:
   1. device check: a CUDA device is required; prints the card's name and
      power limit as nvidia-smi reports them;
-  2. build: compiles the two hand-written kernel sources from csrc/ with
-     nvcc, one process each, started together (fast_corners.cu and
-     triangulate_dlt.cu);
+  2. build: compiles the three hand-written kernel sources from csrc/ with
+     nvcc, one process each, started together (fast_corners.cu,
+     triangulate_dlt.cu and sim3_ransac.cu; the last two include
+     jacobi4.cuh);
   3. kernel against plain: both entry points of the FAST kernel at the 8
      pyramid shapes of a rendered 1241x376 frame, at the 8 of a rendered
      640x480 frame and on uniform noise,
@@ -77,9 +78,23 @@ Phases, each printing its own lines:
      billboards), rendered on the card, with 3 blank frames at frame 100;
      loop closing on. Gated on a closed loop, a relocalization, tracked
      ratio, live keyframe culling, ATE within 1% of the trajectory's
-     extent, kernel launches, device residency and a finite last pose;
-     prints fps, p50/p99, every mapping, loop-closing, global-BA and
-     relocalization call with its frame and time;
+     extent, kernel launches, device residency and a finite last pose, and
+     on the Sim3 stage: one Sim3 kernel launch a candidate verified, the
+     `sim3_ransac` program replayed where two or more were, `sim3_refine`
+     captured at a key's second call (none where it ran once, replays
+     where it ran three times or more); prints fps,
+     p50/p99, every mapping, loop-closing, global-BA and relocalization call
+     with its frame and time, `loop_sim3` per call, the candidates through
+     each Sim3 stage and the four Sim3 programs' captures and replays (as
+     the stereo and RGB-D paths do);
+  6a. the Sim3 RANSAC kernel (csrc/sim3_ransac.cu) on one real call of the
+     loop path (the last candidate whose RANSAC passed, its inputs gathered
+     again from that call's map): launched twice (torch.equal) and held
+     against its plain version (float32 `eigh`): `ok` equal, n_inliers
+     within 2, inlier masks parted on at most 2 matches, R, t, s within
+     1e-4 of float64 Horn on the inliers it refitted on; prints its device
+     time warm and cold and as called, the plain version's time and the
+     bound (Horn's Jacobi sweeps counted on the call's inputs);
   6b. parallel: the distributed back end on the loop path's final map.
      (a) its global-BA problem (as the loop closer gathers it) solved by
      bundle_adjust and by distributed_bundle_adjust on a 1-rank NCCL
@@ -130,11 +145,12 @@ for bit (tools/rgbd_repeat.py in the package checks it on the RGB-D
 frames); a run on another card or host can still part from it, and every
 gate is on this one run. The line before the last is the kernel table as
 JSON: the FAST kernel with its launches summed over all paths (one per
-extracted image) and the DLT kernel's two entries with their launches
+extracted image), the DLT kernel's two entries with their launches
 summed over all paths: `triangulate_dlt` (the initializer's) and
 `triangulate_gated` (one a triangulation neighbour of every keyframe the
 mapper took; every path whose mapper dispatched a keyframe must have
-launched it). The line
+launched it), and `sim3_ransac` (one a loop candidate verified, on the
+loop and stereo paths). The line
 before that holds the same numbers for fast_score_pair, the entry point
 the paths do not call. The last line is the device JSON. Any failure
 raises and exits non-zero without them. Every path prints its programs'
@@ -197,6 +213,7 @@ OPS_TAIL = {"fast_score_pair": 2, "fast_corners_pyramid": 16}
 BYTES_PER_PIXEL = {"fast_score_pair": 12, "fast_corners_pyramid": 8}
 KERNEL_SOURCE = "orb_slam_cuda_tpu_torch/csrc/fast_corners.cu"
 DLT_SOURCE = "orb_slam_cuda_tpu_torch/csrc/triangulate_dlt.cu"
+SIM3_SOURCE = "orb_slam_cuda_tpu_torch/csrc/sim3_ransac.cu"
 # The least work of the function a point, whatever the kernel does (its
 # double arithmetic is its own choice): A (16 products, 16 differences),
 # the 10 entries of the symmetric A^T A (4 products and 3 sums each), the
@@ -237,6 +254,28 @@ DLT_GATE_SHARE = 0.02
 # into FMA or sum in another order, so a value within an ulp or two of a
 # threshold can fall the other way.
 GATE_STAGE_PARTED = 2
+# The Sim3 RANSAC kernel against its plain version (float32 `eigh`; the
+# kernel solves Horn in double) on one real call of the loop path: `ok`
+# equal, n_inliers within SIM3_N_DIFF, masks parted on at most
+# SIM3_PARTED matches (a match within rounding of its threshold), R, t, s
+# within SIM3_TOL64 of float64 Horn on the inliers the kernel refitted on.
+SIM3_N_DIFF, SIM3_PARTED, SIM3_TOL64 = 2, 2, 1e-4
+# The least work of the Sim3 RANSAC function, counted from its code, at
+# float32's rate: for each hypothesis and valid match the bidirectional
+# test (two Sim3 transforms 2 x 21, two projections 2 x 11, two squared
+# errors 2 x 3, two threshold and two depth compares, their AND and the
+# count 8: 78); for each hypothesis its 3-point sums (centroids 18,
+# centring 18, the cross-covariance 45, the second moments 30: 111) and a
+# Horn solve (the N-matrix, the quaternion's rotation, scale and t: 100,
+# and a Jacobi sweep of the DLT's 318 operations for each sweep its
+# N-matrix needs, counted on this call's inputs by `horn_sweeps`); the
+# first maximum of the counts; then the refit's sums over the best
+# hypothesis's inliers (48 a match), its Horn solve and its bidirectional
+# test over the valid matches. Bytes: valid read and the mask written for
+# every match (2 B); x1, x2, uv1, uv2, th1 and th2 read for the valid ones
+# (48 B); the minimal sets (24 B a hypothesis) and the outputs once.
+OPS_SIM3_MATCH, OPS_SIM3_SET, OPS_SIM3_INLIER, OPS_HORN = 78, 111, 48, 100
+BYTES_SIM3_MATCH, BYTES_SIM3_VALID, BYTES_SIM3_SET, BYTES_SIM3_FIXED = 2, 48, 24, 64
 ATE_GATE = 0.24  # 2% of the 12 m near plane
 # The JAX reference System inserts 3 keyframes on this fixture and
 # configuration (2 at initialization, 1 by the keyframe policy).
@@ -376,40 +415,43 @@ def phase_device():
 
 
 def phase_build():
-    """Both kernels' nvcc builds, started together."""
+    """The three kernels' nvcc builds, started together."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from orb_slam_cuda_tpu_torch.ops import dlt_kernel, fast_kernel
+    from orb_slam_cuda_tpu_torch.ops import dlt_kernel, fast_kernel, sim3_kernel
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        builds = [pool.submit(k.build) for k in (fast_kernel, dlt_kernel)]
+    with ThreadPoolExecutor(3) as pool:
+        builds = [pool.submit(k.build) for k in (fast_kernel, dlt_kernel, sim3_kernel)]
         results = [b.result() for b in builds]
-    for source, (path, seconds) in zip((KERNEL_SOURCE, DLT_SOURCE), results):
+    for source, (path, seconds) in zip((KERNEL_SOURCE, DLT_SOURCE, SIM3_SOURCE), results):
         log(f"build: {source} -> {path} in {seconds:.2f} s")
-    log(f"build: both in {time.perf_counter() - t0:.2f} s")
+    log(f"build: all three in {time.perf_counter() - t0:.2f} s")
 
 
 def reset_launches():
     """Every kernel's launch count to 0, just before a path is driven."""
-    from orb_slam_cuda_tpu_torch.ops import dlt_kernel, fast_kernel
+    from orb_slam_cuda_tpu_torch.ops import dlt_kernel, fast_kernel, sim3_kernel
 
     fast_kernel.launches = 0
     dlt_kernel.launches = 0
     dlt_kernel.gated.launches = 0
+    sim3_kernel.launches = 0
 
 
-# The DLT kernel's launches of each path's run, read just after it is
-# driven: {"dlt": the initializer's entry, "gated": the mapper's}.
-DLT_LAUNCHES = {}
+# The DLT and Sim3 kernels' launches of each path's run, read just after it
+# is driven: {"dlt": the initializer's entry, "gated": the mapper's, "sim3":
+# the loop closer's RANSAC}.
+PATH_LAUNCHES = {}
 
 
-def note_dlt_launches(name: str) -> dict:
-    """Record both DLT entries' launches of path `name` since
-    reset_launches()."""
-    from orb_slam_cuda_tpu_torch.ops import dlt_kernel
+def note_launches(name: str) -> dict:
+    """Record the DLT entries' and the Sim3 kernel's launches of path `name`
+    since reset_launches()."""
+    from orb_slam_cuda_tpu_torch.ops import dlt_kernel, sim3_kernel
 
-    DLT_LAUNCHES[name] = n = {"dlt": dlt_kernel.launches, "gated": dlt_kernel.gated.launches}
+    PATH_LAUNCHES[name] = n = {"dlt": dlt_kernel.launches, "gated": dlt_kernel.gated.launches,
+                               "sim3": sim3_kernel.launches}
     return n
 
 
@@ -417,14 +459,64 @@ def mapping_dispatches(slam) -> int:
     return sum(1 for r in slam.timer.rows["timesMapping.csv"] if r[1] == "local_mapping")
 
 
-def dlt_gate(name: str, slam) -> dict:
-    """Record the path's DLT launches and gate them: on the card a path
-    whose mapper dispatched a keyframe launched the gated entry."""
-    n, dispatches = note_dlt_launches(name), mapping_dispatches(slam)
-    log(f"{name}: dlt launches {n} ({dispatches} keyframes dispatched to the mapper)")
-    if slam.device.type != "cuda" or dispatches == 0:
-        return {}
-    return {f"gated dlt launches > 0 ({dispatches} keyframes dispatched)": n["gated"] > 0}
+def kernel_gates(name: str, slam) -> dict:
+    """Record the path's DLT and Sim3 launches, print its Sim3 stage and
+    gate them: on the card a path whose mapper dispatched a keyframe
+    launched the gated DLT entry, and the Sim3 kernel launched once a
+    candidate the loop closer verified, inside the replays of `sim3_ransac`
+    wherever it verified two or more; `sim3_refine` not captured where it
+    ran once and replayed where it ran three times or more."""
+    n, dispatches = note_launches(name), mapping_dispatches(slam)
+    log(f"{name}: dlt and sim3 launches {n} ({dispatches} keyframes dispatched to the mapper)")
+    gates = {}
+    if slam.device.type == "cuda" and dispatches:
+        gates[f"gated dlt launches > 0 ({dispatches} keyframes dispatched)"] = n["gated"] > 0
+    lc = slam.loop_closer
+    if lc is None:
+        return gates
+    ms = [ns / 1e6 for _, stage, _, ns in slam.timer.rows["timesMapping.csv"] if stage == "loop_sim3"]
+    stats = {p.name: p.stats() for p in lc.programs[2:]}
+    log(f"{name}: loop_sim3 {sum(ms) / max(len(ms), 1):.2f} ms a call (n={len(ms)}, max "
+        f"{max(ms, default=0.0):.2f} ms, total {sum(ms):.1f} ms); Sim3 candidates by stage {lc.sim3_counts}; "
+        "Sim3 programs (captures + replays): "
+        + ", ".join(f"{k} {v['captures']} + {v['replays']}" for k, v in stats.items()))
+    attempts, refined = lc.sim3_counts["ransac"], lc.sim3_counts["refine"]
+    if slam.device.type == "cuda":
+        gates[f"sim3 launches == the {attempts} candidates verified"] = n["sim3"] == attempts
+        if attempts >= 2:
+            gates["sim3_ransac replayed"] = stats["sim3_ransac"]["replays"] > 0
+        # sim3_refine captures a key at its second call.
+        if refined == 1:
+            gates["sim3_refine's one call not captured"] = stats["sim3_refine"]["captures"] == 0
+        if refined >= 3:
+            gates["sim3_refine replayed"] = stats["sim3_refine"]["replays"] > 0
+    return gates
+
+
+class Sim3Recorder:
+    """Stands in for a loop closer's `sim3_ransac` program and its host read
+    (as `lc._ransac_fn` and `lc._read`) and keeps the arguments of the last
+    call whose RANSAC passed, as its own read saw it (no read of its own)."""
+
+    def __init__(self, lc):
+        self.program, self.read_fn, self.lc = lc._ransac_fn, lc._read, lc
+        self.pending = self.packed = self.last_ok = None
+        lc._ransac_fn, lc._read = self, self.read
+
+    def __call__(self, *args):
+        out = self.program(*args)
+        self.pending, self.packed = args, out[0]
+        return out
+
+    def read(self, t):
+        v = self.read_fn(t)
+        if t is self.packed and v[1]:
+            self.last_ok = self.pending
+        return v
+
+    def detach(self):
+        self.lc._ransac_fn = self.program
+        del self.lc._read  # the class's own again
 
 
 def _rel_err(a, b, mask) -> float:
@@ -439,16 +531,46 @@ def _rel_err(a, b, mask) -> float:
 def jacobi_sweeps(P1, P2, xy1, xy2, cap=8):
     """The Jacobi sweeps each point's DLT solve needs, (N,) int64: the
     kernel's solve (csrc/triangulate_dlt.cu) replayed in float64 on the
-    host, every point at once: A^T A of the four DLT rows, sweeps of 3
-    rounds of 2 disjoint rotations, c and s from rsqrt as the kernel takes
-    them, stopping after the first sweep whose off-diagonal entries are at
-    most double epsilon times the trace, `cap` at most."""
+    host, every point at once: A^T A of the four DLT rows, stopping after
+    the first sweep whose off-diagonal entries are at most double epsilon
+    times the trace, `cap` at most."""
     import torch
 
     P1, P2, xy1, xy2 = (t.detach().double().cpu() for t in (P1, P2, xy1, xy2))
     A = torch.stack([xy1[:, :1] * P1[2] - P1[0], xy1[:, 1:] * P1[2] - P1[1],
                      xy2[:, :1] * P2[2] - P2[0], xy2[:, 1:] * P2[2] - P2[1]], 1)
-    a = A.transpose(1, 2) @ A
+    return _jacobi4_sweeps(A.transpose(1, 2) @ A, lambda a: a.diagonal(dim1=1, dim2=2).sum(1), cap)
+
+
+def horn_sweeps(x1, x2, sets, inliers, cap=12):
+    """The Jacobi sweeps of the Sim3 kernel's Horn solves on one call,
+    (NH + 1,) int64: the N-matrix of each minimal set's centred
+    cross-covariance and that of the refit over `inliers` (the best
+    hypothesis's inliers, unweighted), in float64 as csrc/sim3_ransac.cu
+    forms them, solved by its Jacobi (the DLT kernel's rotations; the exit
+    scaled by the diagonal's magnitudes, `cap` sweeps at most)."""
+    import torch
+
+    from orb_slam_cuda_tpu_torch.solvers.sim3_solver import n_matrix
+
+    x1, x2 = x1.detach().double().cpu(), x2.detach().double().cpu()
+    sets, w = sets.detach().cpu(), inliers.detach().cpu().double()[:, None]
+    p1, p2 = x1[sets], x2[sets]
+    y1, y2 = p1 - p1.mean(1, keepdim=True), p2 - p2.mean(1, keepdim=True)
+    n = torch.clamp(w.sum(), min=3.0)
+    c1, c2 = (x1 * w).sum(0) / n, (x2 * w).sum(0) / n
+    M = torch.cat([y2.transpose(1, 2) @ y1, (((x2 - c2) * w).T @ ((x1 - c1) * w))[None]])
+    return _jacobi4_sweeps(n_matrix(M), lambda a: a.diagonal(dim1=1, dim2=2).abs().sum(1), cap)
+
+
+def _jacobi4_sweeps(a, scale, cap):
+    """The sweeps csrc/jacobi4.cuh's solve takes on each symmetric 4x4
+    matrix of `a` (B,4,4) float64 (changed in place): sweeps of 3 rounds of
+    2 disjoint rotations, c and s from rsqrt as the kernels take them,
+    stopping after the first sweep whose off-diagonal entries are at most
+    double epsilon times `scale(a)`, `cap` at most."""
+    import torch
+
     n = a.shape[0]
     sweeps = torch.full((n,), cap, dtype=torch.int64)
     done = torch.zeros(n, dtype=torch.bool)
@@ -480,7 +602,7 @@ def jacobi_sweeps(P1, P2, xy1, xy2, cap=8):
             a[:, s_, s_] += ty * ars
             a[:, p, q] = a[:, q, p] = a[:, r_, s_] = a[:, s_, r_] = 0.0
         off = torch.stack([a[:, i, j].abs() for i, j in upper], 1).amax(1)
-        now = ~done & (off <= eps * a.diagonal(dim1=1, dim2=2).sum(1))
+        now = ~done & (off <= eps * scale(a))
         sweeps[now] = sweep + 1
         done |= now
     return sweeps
@@ -990,7 +1112,7 @@ def phase_main_path(cam, poses, frames, device=None, vocab=None):
     flush_ms = (time.perf_counter() - t0) * 1e3
     total_s = time.perf_counter() - t_all
     launches = fast_kernel.launches
-    dlt = note_dlt_launches("orbit")
+    dlt = note_launches("orbit")
     dispatches = mapping_dispatches(slam)
 
     ts, est = camera_centers(slam.get_trajectory())
@@ -1455,9 +1577,11 @@ def phase_loop_path(cam, poses, frames, device=None):
     from orb_slam_cuda_tpu_torch.engine import Sensor
 
     slam = build_system(circuit_config(cam, Sensor.MONOCULAR), device)
+    recorder = Sim3Recorder(slam.loop_closer)  # keeps one real Sim3 call's inputs for phase_sim3_kernel
     _, frame_ms, reloc_calls, _, total_s, launches = drive(
         slam, lambda s, img, t: s.track_monocular(img, t), frames, 0.1)
-    dlt = dlt_gate("loop path", slam)
+    recorder.detach()
+    dlt = kernel_gates("loop path", slam)
     ate, extent, _, off_device, program_calls = summarize("loop path", slam, poses, 0.1, frame_ms, reloc_calls,
                                                           total_s, launches, with_scale=True)
     status = slam.get_status()
@@ -1480,7 +1604,95 @@ def phase_loop_path(cam, poses, frames, device=None):
         **dlt,
     }
     check_gates("loop path", gates)
-    return launches, slam
+    return launches, slam, recorder.last_ok
+
+
+def phase_sim3_kernel(slam, call):
+    """The Sim3 RANSAC kernel on one real call of the loop path (`call`, the
+    arguments of the last `sim3_ransac` program call whose RANSAC passed:
+    the BoW match's pairs of the two keyframes, all their features, pairs
+    without two live points invalid, and the draw's minimal sets), the
+    kernel launched twice (torch.equal) and held against its plain
+    version (float32 `eigh`) and against float64 Horn on the inliers it
+    refitted on; its device time warm and cold and as called, the plain
+    version's time and the bound. Returns the kernel-table row (without
+    `launches`)."""
+    import torch
+
+    from orb_slam_cuda_tpu_torch.engine import loop_closing
+    from orb_slam_cuda_tpu_torch.ops import sim3_kernel
+    from orb_slam_cuda_tpu_torch.solvers import sim3_solver
+
+    if call is None:
+        raise AssertionError("sim3 kernel: the loop path made no Sim3 call whose RANSAC passed")
+    lc = slam.loop_closer
+    (_, valid, x1, x2, uv1, uv2, th1, th2), sets = call
+    cam, fix, min_in = lc.cam, lc.fix_scale, loop_closing.MIN_SIM3_INLIERS
+    args = (x1, x2, uv1, uv2, valid, sets, th1, th2, cam, fix, min_in)
+    launches0 = sim3_kernel.launches
+    out = sim3_kernel.launch(*args)
+    again = sim3_kernel.launch(*args)
+
+    def plain():
+        return sim3_solver.solve_sim3_ransac_plain(x1, x2, uv1, uv2, valid, cam, th1, th2, fix_scale=fix,
+                                                   min_inliers=min_in, sample_sets=sets)
+
+    want = plain()
+    R, t, s, inl, n_in, ok, info, counts, params = out
+    ref = sim3_kernel.reference64(x1, x2, uv1, uv2, valid, sets, th1, th2, cam, fix, info, params)
+    torch.cuda.synchronize()
+    err64 = max(float((a.double() - b).abs().max()) for a, b in zip((R, t, s), ref))
+    err_plain = max(float((a - b).abs().max()) for a, b in zip((R, t, s), want[:3]))
+    parted = int((inl != want.inliers).sum())
+    m, n_valid, best = x1.shape[0], int(valid.sum()), int(info[0])
+    n_best = int(counts[best])
+    log(f"sim3_ransac on the loop path's last passing call: {m} matches, {n_valid} valid pairs; "
+        f"best hypothesis {best} of {sets.shape[0]} ({n_best} inliers), refit kept {bool(info[1])}; kernel ok "
+        f"{bool(ok)}, {int(n_in)} inliers; plain version ok {bool(want.ok)}, {int(want.n_inliers)} inliers; masks "
+        f"part on {parted} (tolerance {SIM3_PARTED}); R, t, s {err64:.3e} from float64 Horn on the inliers refitted "
+        f"on (tolerance {SIM3_TOL64}), {err_plain:.3e} from the plain version's")
+    check_gates("sim3_ransac kernel", {
+        "ok equal to the plain version's": bool(ok) == bool(want.ok),
+        f"n_inliers within {SIM3_N_DIFF} of the plain version's":
+            abs(int(n_in) - int(want.n_inliers)) <= SIM3_N_DIFF,
+        f"inlier masks part on <= {SIM3_PARTED} matches": parted <= SIM3_PARTED,
+        f"R, t, s within {SIM3_TOL64} of float64 Horn": err64 <= SIM3_TOL64,
+        "two launches torch.equal": all(torch.equal(a, b) for a, b in zip(out, again)),
+        "the call's RANSAC passes": bool(ok),
+    })
+
+    flush = torch.empty(128 * 1024 * 1024 // 4, device=x1.device)  # 128 MB > the 50 MB L2
+
+    def kern():
+        return sim3_kernel.launch(*args)
+
+    warm = device_median_ms(kern, inner=10)
+    cold = device_median_ms(kern, before=flush.zero_)
+    called = cuda_median_ms(lambda: sim3_kernel.solve(*args))
+    plain_ms = cuda_median_ms(plain)
+    nh, p = sets.shape[0], params[best]
+    best_inl = sim3_solver.count_inliers(p[:9].reshape(3, 3), p[9:12], p[12], x1, x2, uv1, uv2, valid, cam, th1, th2)
+    sweeps = horn_sweeps(x1, x2, sets, best_inl)
+    ops = (nh * (n_valid * OPS_SIM3_MATCH + OPS_SIM3_SET) + (nh + 1) * OPS_HORN + int(sweeps.sum()) * OPS_DLT_SWEEP
+           + nh + n_best * OPS_SIM3_INLIER + n_valid * OPS_SIM3_MATCH)
+    nbytes = m * BYTES_SIM3_MATCH + n_valid * BYTES_SIM3_VALID + nh * BYTES_SIM3_SET + BYTES_SIM3_FIXED
+    sweep_counts = {int(k): int(v) for k, v in zip(*torch.unique(sweeps, return_counts=True))}
+    by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    by_ops = ops / PEAK_FP32_OPS_PER_S * 1e3
+    bound_ms, bound_by = max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations")
+    log(f"sim3_ransac per call ({m} matches, {nh} hypotheses): device {warm:.4f} ms warm (10 calls a pair of "
+        f"events), {cold:.4f} ms cold L2 (1 call a pair); as called {called:.4f} ms; plain {plain_ms:.4f} ms; bound "
+        f"{bound_ms:.6f} ms by {bound_by} ({by_bytes:.6f} by {nbytes} bytes, {by_ops:.6f} by {ops} FP32 "
+        f"operations, Horn's Jacobi sweeps {sweep_counts} of its {nh + 1} N-matrices); share of bound reached "
+        f"{bound_ms / warm:.4f} warm; library call: none (no one PyTorch call computes Sim3 RANSAC, and eigh reads "
+        f"back)")
+    sim3_kernel.launches = launches0  # the comparison's launches are not the path's
+    return {"name": "sim3_ransac", "route": "cuda", "source": SIM3_SOURCE,
+            "replaces": "orb_slam_cuda_tpu/solvers/sim3_solver.py:78", "max_abs_err": err_plain,
+            "max_abs_err_f64": err64, "matches": m, "valid": n_valid, "inliers": int(n_in),
+            "inliers_plain": int(want.n_inliers), "masks_parted": parted, "ms": warm, "cold_l2_ms": cold,
+            "as_called_ms": called, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "jacobi_sweeps": sweep_counts, "library_ms": None}
 
 
 def _max_abs(a, b) -> float:
@@ -1584,7 +1796,7 @@ def phase_stereo_path(cam, poses, frames, device=None):
     slam = build_system(circuit_config(cam, Sensor.STEREO), device)
     est, frame_ms, reloc_calls, depth_share, total_s, launches = drive(
         slam, lambda s, pair, t: s.track_stereo(pair[0], pair[1], t), frames, 0.1)
-    dlt = dlt_gate("stereo path", slam)
+    dlt = kernel_gates("stereo path", slam)
     ate, extent, span, off_device, program_calls = summarize("stereo path", slam, poses, 0.1, frame_ms,
                                                              reloc_calls, total_s, launches, with_scale=False)
     status = slam.get_status()
@@ -1635,7 +1847,7 @@ def phase_rgbd_path(cam, poses, frames, device=None):
 
     slam = build_system(cfg, device)
     est, frame_ms, reloc_calls, depth_share, total_s, launches = drive(slam, track, frames, RGBD_DT)
-    dlt = dlt_gate("rgbd path", slam)
+    dlt = kernel_gates("rgbd path", slam)
     ate, extent, span, off_device, program_calls = summarize("rgbd path", slam, poses, RGBD_DT, frame_ms,
                                                              reloc_calls, total_s, launches, with_scale=False)
     log(f"rgbd path: pose at frame 0 {est[0] is not None}; valid features with a depth "
@@ -1780,7 +1992,7 @@ def phase_cli_path(device=None):
         os.makedirs(timing)
         launches, lines, run_s = _cli(args + ["--save-tum", traj, "--diag", diag, "--timing-dir", timing,
                                               "--save-map", map_path] + dev_args)
-        dlt = note_dlt_launches("cli path")
+        dlt = note_launches("cli path")
         rows = _read_csv(diag)
         ok = [r["state"] == "OK" for r in rows]
         first = ok.index(True) if any(ok) else None
@@ -1859,7 +2071,7 @@ def _stereo_worker(queue, device, n_frames):
         t0 = time.perf_counter()
         launches = phase_stereo_path(*make_stereo_fixture(device, n_frames),
                                      device=None if device == "cuda" else device)
-        queue.put(dict(launches=launches, dlt=DLT_LAUNCHES.get("stereo path", {"dlt": 0, "gated": 0}),
+        queue.put(dict(launches=launches, dlt=PATH_LAUNCHES.get("stereo path", {"dlt": 0, "gated": 0, "sim3": 0}),
                        seconds=time.perf_counter() - t0, log=out.getvalue()))
     except BaseException:
         queue.put(dict(error=traceback.format_exc(), log=out.getvalue()))
@@ -1907,7 +2119,7 @@ def finish_stereo_path(handle, timeout_s: float = 1000.0):
     if "error" in res:
         raise AssertionError("stereo path failed in its process:\n" + res["error"])
     log(f"stereo path (own process): {res['seconds']:.1f} s")
-    DLT_LAUNCHES["stereo path"] = res["dlt"]
+    PATH_LAUNCHES["stereo path"] = res["dlt"]
     return res["launches"]
 
 
@@ -1944,9 +2156,11 @@ def main() -> int:
     del frames, vocab, orbit_slam
     stereo = start_stereo_path()  # beside the paths below; its log is printed when it ends
     try:
-        loop_launches, loop_slam = timed("loop path", phase_loop_path,
-                                         *timed("loop fixture", make_loop_fixture, "cuda"))
+        loop_launches, loop_slam, sim3_call = timed("loop path", phase_loop_path,
+                                                    *timed("loop fixture", make_loop_fixture, "cuda"))
         launches += loop_launches
+        sim3_row = timed("kernels", phase_sim3_kernel, loop_slam, sim3_call)
+        del sim3_call
         timed("parallel", phase_parallel, loop_slam)
         del loop_slam
         launches += timed("rgbd path", phase_rgbd_path, *rgbd)
@@ -1963,10 +2177,10 @@ def main() -> int:
     # above, but no path calls it: its row stands apart from the main
     # path's kernel table.
     print(json.dumps({"entry_points_off_the_main_path": [dict(pair_row, launches=0)]}), flush=True)
-    log(f"dlt launches by path: {DLT_LAUNCHES}")
-    print(json.dumps({"kernels": [dict(pyramid_row, launches=launches),
-                                  dict(dlt_row, launches=sum(n["dlt"] for n in DLT_LAUNCHES.values())),
-                                  dict(gated_row, launches=sum(n["gated"] for n in DLT_LAUNCHES.values()))]}),
+    log(f"dlt and sim3 launches by path: {PATH_LAUNCHES}")
+    total = {k: sum(n.get(k, 0) for n in PATH_LAUNCHES.values()) for k in ("dlt", "gated", "sim3")}
+    print(json.dumps({"kernels": [dict(pyramid_row, launches=launches), dict(dlt_row, launches=total["dlt"]),
+                                  dict(gated_row, launches=total["gated"]), dict(sim3_row, launches=total["sim3"])]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -119,18 +119,66 @@ def _project_points_into_kf(pts_xyz, pts_valid, pts_min_d, pts_max_d, S_cam, cam
     return torch.stack([u, v], dim=-1), pred, pts_valid & z_ok & in_img & band
 
 
+def _row(arr, slot):
+    """Row `slot` (an int or a slot tensor) of `arr`, gathered through a
+    (1,) index: a 0-d tensor index would read back on the card."""
+    return arr[slot_index(slot, arr.device)][0]
+
+
+def sim3_pairs(state: MapState, kf1, cand, sig2):
+    """The BoW match of keyframe kf1's features to the candidate's, and the
+    matched point pairs gathered on the map's device: (idx (N,) the
+    candidate feature per kf1 feature or -1, pair_ok (N,): both features
+    hold a live point, x1, x2 (N,3) those points in each keyframe's camera
+    frame, uv1, uv2 (N,2), th1, th2 (N,) the chi2 thresholds 9.210 sigma^2
+    of each octave). Indices are clamped, so a pair that is not ok gathers
+    row 0. kf1, cand: slots (ints or slot tensors); sig2 (L,) float32."""
+    mp1, mp2 = _row(state.kf_mp, kf1).long(), _row(state.kf_mp, cand).long()
+    has1 = (mp1 >= 0) & state.mp_valid[torch.clamp(mp1, min=0)]
+    has2 = (mp2 >= 0) & state.mp_valid[torch.clamp(mp2, min=0)]
+    m = search.by_bow(
+        _row(state.kf_node, kf1), hamming.bipolar(_row(state.kf_desc, kf1)), _row(state.kf_feat_valid, kf1),
+        _row(state.kf_ang, kf1), _row(state.kf_node, cand), hamming.bipolar(_row(state.kf_desc, cand)),
+        _row(state.kf_feat_valid, cand), _row(state.kf_ang, cand), ratio=0.75, check_rotation=True,
+        f1_has_point=has1,
+    )
+    idx = m.idx.long()
+    j = torch.clamp(idx, min=0)
+    pair_ok = (idx >= 0) & (mp1 >= 0) & has2[j]
+    x1 = se3.transform(_row(state.kf_pose, kf1), state.mp_xyz[torch.clamp(mp1, min=0)])
+    x2 = se3.transform(_row(state.kf_pose, cand), state.mp_xyz[torch.clamp(mp2[j], min=0)])
+    top = sig2.shape[0] - 1
+    th1 = 9.210 * sig2[torch.clamp(_row(state.kf_oct, kf1).long(), 0, top)]
+    th2 = 9.210 * sig2[torch.clamp(_row(state.kf_oct, cand).long()[j], 0, top)]
+    return idx, pair_ok, x1, x2, _row(state.kf_uv, kf1), _row(state.kf_uv, cand)[j], th1, th2
+
+
+def sim3_candidate_ransac(pairs, sets, cam: Camera, fix_scale: bool = False):
+    """Sim3 RANSAC (the kernel on the card) on `sim3_pairs`' output `pairs`
+    over the (NH,3) minimal sets `sets`. Returns (packed (2,) int64:
+    RANSAC inliers, ok; R, t, s; prior_feat (N,) the candidate feature of
+    each RANSAC inlier or -1)."""
+    idx, pair_ok, x1, x2, uv1, uv2, th1, th2 = pairs
+    res = sim3_solver.solve_sim3_ransac(x1, x2, uv1, uv2, pair_ok, cam, th1, th2, fix_scale=fix_scale,
+                                        min_inliers=MIN_SIM3_INLIERS, sample_sets=sets)
+    prior_feat = torch.where(pair_ok & res.inliers, idx, torch.full_like(idx, -1))
+    packed = torch.stack([res.n_inliers.long(), res.ok.long()])
+    return packed, res.R, res.t, res.s, prior_feat
+
+
 def sim3_search_and_refine(state: MapState, kf1: int, kf2: int, R0, t0, s0, prior_feat,
                            cam: Camera, scale_factors, fix_scale: bool = False):
     """SearchBySim3 (each keyframe's points projected through the estimate
     into the other, window-matched, mutual pairs kept; RANSAC inliers
     `prior_feat` (N,) are kept and skipped) then OptimizeSim3 over the
-    combined correspondences. Returns (R, t, s, n_inliers, feat12), feat12
-    (N,) the surviving kf2 feature per kf1 feature or -1."""
+    combined correspondences. kf1, kf2: slots (ints or slot tensors).
+    Returns (R, t, s, n_inliers, feat12), feat12 (N,) the surviving kf2
+    feature per kf1 feature or -1."""
     S12 = (R0, t0, s0)
     S21 = sim3.inverse(S12)
     dev = state.device
-    T1, T2 = state.kf_pose[kf1], state.kf_pose[kf2]
-    mp1, mp2 = state.kf_mp[kf1], state.kf_mp[kf2]
+    T1, T2 = _row(state.kf_pose, kf1), _row(state.kf_pose, kf2)
+    mp1, mp2 = _row(state.kf_mp, kf1), _row(state.kf_mp, kf2)
     p1 = torch.clamp(mp1, min=0).long()
     p2 = torch.clamp(mp2, min=0).long()
     has1 = (mp1 >= 0) & state.mp_valid[p1]
@@ -147,8 +195,8 @@ def sim3_search_and_refine(state: MapState, kf1: int, kf2: int, R0, t0, s0, prio
             xc, has & ~already, state.mp_min_dist[pts], state.mp_max_dist[pts], S, cam, sf)
         return search.by_projection(
             proj, hamming.bipolar(state.mp_desc[pts]), gate, pred,
-            state.kf_uv[kf_t], state.kf_oct[kf_t], zeros_ang, hamming.bipolar(state.kf_desc[kf_t]),
-            state.kf_feat_valid[kf_t], sf, radius=7.5, max_dist=100.0, ratio=1.0,
+            _row(state.kf_uv, kf_t), _row(state.kf_oct, kf_t), zeros_ang, hamming.bipolar(_row(state.kf_desc, kf_t)),
+            _row(state.kf_feat_valid, kf_t), sf, radius=7.5, max_dist=100.0, ratio=1.0,
             octave_lo_off=-1, octave_hi_off=0, check_rotation=False,
         )
 
@@ -166,10 +214,10 @@ def sim3_search_and_refine(state: MapState, kf1: int, kf2: int, R0, t0, s0, prio
     pair_ok = (feat12 >= 0) & has1 & has2[jm]
     max_oct = sf.shape[0] - 1
     inv_sig = 1.0 / (sf ** 2)
-    oct1 = torch.clamp(state.kf_oct[kf1].long(), 0, max_oct)
-    oct2 = torch.clamp(state.kf_oct[kf2][jm].long(), 0, max_oct)
+    oct1 = torch.clamp(_row(state.kf_oct, kf1).long(), 0, max_oct)
+    oct2 = torch.clamp(_row(state.kf_oct, kf2)[jm].long(), 0, max_oct)
     res = sim3_opt.optimize_sim3(
-        S12, x1c, se3.transform(T2, state.mp_xyz[q2]), state.kf_uv[kf1], state.kf_uv[kf2][jm],
+        S12, x1c, se3.transform(T2, state.mp_xyz[q2]), _row(state.kf_uv, kf1), _row(state.kf_uv, kf2)[jm],
         inv_sig[oct1], inv_sig[oct2], pair_ok, cam, fix_scale=fix_scale, th2=10.0,
     )
     return res.R, res.t, res.s, res.n_inliers, torch.where(pair_ok & res.inliers, feat12, minus1)
@@ -178,10 +226,10 @@ def sim3_search_and_refine(state: MapState, kf1: int, kf2: int, R0, t0, s0, prio
 def loop_group_point_count(state: MapState, cand: int):
     """(count, loop_kfs mask) of the loop keyframe's covisibility-group
     points (fresh covisibility), so the host can size the projection gate
-    to the true occupancy."""
+    to the true occupancy. `cand` an int or a slot tensor."""
     covis = map_ops.covisibility_matrix(state)
     K = covis.shape[0]
-    loop_kfs = ((covis[cand] >= 15) | (torch.arange(K, device=state.device) == cand)) & state.kf_valid
+    loop_kfs = ((_row(covis, cand) >= 15) | slot_mask(cand, K, state.device)) & state.kf_valid
     pts_mask = map_ops.points_of_keyframes(state, loop_kfs) & state.mp_valid
     return torch.sum(pts_mask), loop_kfs
 
@@ -190,8 +238,9 @@ def loop_points_projection_gate(state: MapState, kf_cur: int, cand: int, R, t, s
                                 cam: Camera, scale_factors, loop_kfs, n_pts_bucket: int = 4096):
     """The final acceptance gate: project the loop group's points through
     Scw = S_cm o T_mw into the current keyframe (th=10, TH_LOW, view cos
-    0.5) and count matched features. Returns (n_total, point_match (N,)
-    point id per current-keyframe feature or -1)."""
+    0.5) and count matched features. kf_cur, cand: slots (ints or slot
+    tensors). Returns (n_total, point_match (N,) point id per
+    current-keyframe feature or -1)."""
     P = state.mp_xyz.shape[0]
     dev = state.device
     pts = local_mapping.nonzero_fixed(map_ops.points_of_keyframes(state, loop_kfs) & state.mp_valid,
@@ -199,7 +248,7 @@ def loop_points_projection_gate(state: MapState, kf_cur: int, cand: int, R, t, s
     pv = pts >= 0
     pc = torch.clamp(pts, min=0)
     sf = torch.as_tensor(scale_factors, dtype=torch.float32, device=dev)
-    S_cw = sim3.compose((R, t, s), sim3.from_se3(state.kf_pose[cand]))
+    S_cw = sim3.compose((R, t, s), sim3.from_se3(_row(state.kf_pose, cand)))
     Rc, tc, sc = S_cw
     Ow = -(Rc.transpose(-1, -2) @ (tc / sc)[..., None])[..., 0]
     X = state.mp_xyz[pc]
@@ -216,7 +265,7 @@ def loop_points_projection_gate(state: MapState, kf_cur: int, cand: int, R, t, s
     pred = search.predict_octave(dist_w, state.mp_max_dist[pc], torch.log(sf[1]), sf.shape[0])
 
     # Points already matched by the Sim3 stage are skipped, their features taken.
-    mp2 = state.kf_mp[cand]
+    mp2 = _row(state.kf_mp, cand)
     feat_matched = feat_matched.long()
     fm_ok = feat_matched >= 0
     matched_pts = torch.where(fm_ok, mp2[torch.clamp(feat_matched, min=0)].long(),
@@ -227,8 +276,8 @@ def loop_points_projection_gate(state: MapState, kf_cur: int, cand: int, R, t, s
     feat_taken = map_ops.mark(N, torch.clamp(feat_matched, min=0), fm_ok)
     m = search.by_projection(
         torch.stack([u, v], dim=-1), hamming.bipolar(state.mp_desc[pc]), q_valid, pred,
-        state.kf_uv[kf_cur], state.kf_oct[kf_cur], torch.zeros((N,), dtype=torch.float32, device=dev),
-        hamming.bipolar(state.kf_desc[kf_cur]), state.kf_feat_valid[kf_cur],
+        _row(state.kf_uv, kf_cur), _row(state.kf_oct, kf_cur), torch.zeros((N,), dtype=torch.float32, device=dev),
+        hamming.bipolar(_row(state.kf_desc, kf_cur)), _row(state.kf_feat_valid, kf_cur),
         sf, radius=10.0, max_dist=50.0, ratio=1.0, octave_lo_off=-1, octave_hi_off=1,
         check_rotation=False, t_has_point=feat_taken,
     )
@@ -340,7 +389,23 @@ class LoopCloser:
         # the solve takes several times as long as running it.
         self._detect_fn = programs.Program(self._detect_program, "loop_detect")
         self._chunk_fn = programs.Program(self._chunk_program, "gba_chunk")
-        self.programs = (self._detect_fn, self._chunk_fn)
+        # The Sim3 stage of a candidate, one program a host decision: the BoW
+        # match (eager in the JAX package), then as the JAX package jits them
+        # RANSAC, the refinement and the projection gate. The refinement's
+        # capture takes seconds, more than an eager call, so a key is
+        # captured at its second call: a path that refines once (stereo)
+        # never pays it.
+        self._match_fn = programs.Program(self._match_program, "sim3_match")
+        self._ransac_fn = programs.Program(self._ransac_program, "sim3_ransac")
+        self._refine_fn = programs.Program(self._refine_program, "sim3_refine", capture_at=2)
+        self._gate_fn = programs.Program(self._gate_program, "loop_gate")
+        self.programs = (self._detect_fn, self._chunk_fn, self._match_fn, self._ransac_fn, self._refine_fn,
+                         self._gate_fn)
+        # Candidates through each stage of _compute_sim3: `match` (every
+        # candidate), `ransac` (enough pairs), `refine` (RANSAC ok), `gate`
+        # (refined inliers enough), `accepted`.
+        self.sim3_counts = dict(match=0, ransac=0, refine=0, gate=0, accepted=0)
+        self._tables = {}
 
     def _stage(self, name: str, state: MapState):
         return self.timer.stage("timesMapping.csv", name, sync=state.device)
@@ -443,62 +508,79 @@ class LoopCloser:
         return enough
 
     # ------------------------------------------------------------------
+    def _level_tables(self, device):
+        """(sigma^2, scale factor) per level as float32 tensors on `device`,
+        made once: program inputs, never host data copied inside one."""
+        key = str(device)
+        if key not in self._tables:
+            self._tables[key] = tuple(torch.as_tensor(np.asarray(v, np.float32), device=device)
+                                      for v in (self.cfg.level_sigma2, self.cfg.scale_factors))
+        return self._tables[key]
+
+    @staticmethod
+    def _match_program(state: MapState, kf1, cand, sig2):
+        pairs = sim3_pairs(state, kf1, cand, sig2)
+        return torch.sum(pairs[1]), pairs
+
+    def _ransac_program(self, pairs, sets):
+        return sim3_candidate_ransac(pairs, sets, self.cam, self.fix_scale)
+
+    def _refine_program(self, state: MapState, kf1, cand, R, t, s, prior_feat, sf):
+        R_r, t_r, s_r, n_in, feat12 = sim3_search_and_refine(state, kf1, cand, R, t, s, prior_feat, self.cam, sf,
+                                                             fix_scale=self.fix_scale)
+        # The loop group's point count joins the refinement's read: the host
+        # sizes the projection gate with it.
+        n_grp, loop_kfs = loop_group_point_count(state, cand)
+        return torch.stack([n_in.long(), n_grp.long()]), R_r, t_r, s_r, feat12, loop_kfs
+
+    def _gate_program(self, state: MapState, kf1, cand, R, t, s, feat12, loop_kfs, sf, bucket: int):
+        return loop_points_projection_gate(state, kf1, cand, R, t, s, feat12, self.cam, sf, loop_kfs,
+                                           n_pts_bucket=bucket)
+
+    @staticmethod
+    def _read(t):
+        """One packed host decision: the copy queued, then waited for."""
+        host, event = programs.read_async(t)
+        if event is not None:
+            event.synchronize()
+        return host.tolist()
+
     def _compute_sim3(self, state: MapState, kf_slot: int, cands: List[int]):
-        """Per candidate: BoW matching of the two keyframes' points, Sim3
-        RANSAC, SearchBySim3 + OptimizeSim3 (>= 20 inliers), then the
-        loop-group projection gate (>= 40 matches). Returns (cand, S_cm,
-        point_match) for the first candidate through, else None."""
+        """Per candidate: BoW matching of the two keyframes' points
+        (`sim3_match`, >= 20 pairs), Sim3 RANSAC (`sim3_ransac`, >= 20
+        inliers), SearchBySim3 + OptimizeSim3 (`sim3_refine`, >= 20
+        inliers), then the loop-group projection gate (`loop_gate`, >= 40
+        matches), each a program with one packed read after it. Returns
+        (cand, S_cm, point_match) for the first candidate through, else
+        None."""
         dev = state.device
-        mp1_t = state.kf_mp[kf_slot]
-        has1 = (mp1_t >= 0) & state.mp_valid[torch.clamp(mp1_t, min=0).long()]
-        mp1 = mp1_t.cpu().numpy()
-        oct1 = state.kf_oct[kf_slot].cpu().numpy()
-        sig2 = np.asarray(self.cfg.level_sigma2, np.float32)
-        top = len(sig2) - 1
-        bip1 = hamming.bipolar(state.kf_desc[kf_slot])
+        sig2, sf = self._level_tables(dev)
+        kf_t = slot_index(kf_slot, dev)
         for cand in cands:
-            mp2_t = state.kf_mp[cand]
-            has2 = (mp2_t >= 0) & state.mp_valid[torch.clamp(mp2_t, min=0).long()]
-            m = search.by_bow(
-                state.kf_node[kf_slot], bip1, state.kf_feat_valid[kf_slot], state.kf_ang[kf_slot],
-                state.kf_node[cand], hamming.bipolar(state.kf_desc[cand]), state.kf_feat_valid[cand],
-                state.kf_ang[cand], ratio=0.75, check_rotation=True, f1_has_point=has1,
-            )
-            idx = m.idx.cpu().numpy()
-            j = np.clip(idx, 0, None)
-            pair_ok = (idx >= 0) & (mp1 >= 0) & has2.cpu().numpy()[j]
-            if pair_ok.sum() < MIN_SIM3_INLIERS:
+            slots = (kf_t, slot_index(cand, dev))
+            self.sim3_counts["match"] += 1
+            n_pairs, pairs = self._match_fn(state, *slots, sig2)
+            if self._read(n_pairs) < MIN_SIM3_INLIERS:
                 continue
-            mp2 = mp2_t.cpu().numpy()
-            j_t = torch.as_tensor(j, device=dev)
-            x1 = se3.transform(state.kf_pose[kf_slot], state.mp_xyz[torch.as_tensor(np.clip(mp1, 0, None), device=dev).long()])
-            x2 = se3.transform(state.kf_pose[cand], state.mp_xyz[torch.as_tensor(np.clip(mp2[j], 0, None), device=dev).long()])
-            th1 = 9.210 * sig2[np.clip(oct1, 0, top)]
-            th2 = 9.210 * sig2[np.clip(state.kf_oct[cand].cpu().numpy()[j], 0, top)]
-            valid = torch.as_tensor(pair_ok, device=dev)
-            res = sim3_solver.solve_sim3_ransac(
-                x1, x2, state.kf_uv[kf_slot], state.kf_uv[cand][j_t], valid, self.cam,
-                torch.as_tensor(th1, device=dev), torch.as_tensor(th2, device=dev),
-                fix_scale=self.fix_scale, min_inliers=MIN_SIM3_INLIERS,
-                sample_sets=self.sampler("sim3", int(kf_slot) * 131 + int(cand), valid),
-            )
-            if not bool(res.ok):
+            self.sim3_counts["ransac"] += 1
+            # The minimal sets on the pairs' device (the default sampler masks
+            # host-drawn keys there: nothing is read back).
+            sets = torch.as_tensor(self.sampler("sim3", int(kf_slot) * 131 + int(cand), pairs[1]),
+                                   device=dev).long()
+            packed, R, t, s, prior_feat = self._ransac_fn(pairs, sets)
+            if not self._read(packed)[1]:
                 continue
-            prior_feat = np.where(pair_ok & res.inliers.cpu().numpy(), idx, -1)
-            R_r, t_r, s_r, n_in, feat12 = sim3_search_and_refine(
-                state, kf_slot, cand, res.R, res.t, res.s, torch.as_tensor(prior_feat, device=dev),
-                self.cam, self.scale_factors, fix_scale=self.fix_scale,
-            )
-            if int(n_in) < MIN_OPT_INLIERS:
+            self.sim3_counts["refine"] += 1
+            packed, R_r, t_r, s_r, feat12, loop_kfs = self._refine_fn(state, *slots, R, t, s, prior_feat, sf)
+            n_in, n_grp = self._read(packed)
+            if n_in < MIN_OPT_INLIERS:
                 continue
-            n_grp, loop_kfs = loop_group_point_count(state, cand)
-            bucket = pow2_bucket(int(n_grp), 4096, self.cfg.max_points)
-            n_total, point_match = loop_points_projection_gate(
-                state, kf_slot, cand, R_r, t_r, s_r, feat12, self.cam, self.scale_factors,
-                loop_kfs, n_pts_bucket=bucket,
-            )
-            if int(n_total) < MIN_TOTAL_MATCHES:
+            self.sim3_counts["gate"] += 1
+            bucket = pow2_bucket(n_grp, 4096, self.cfg.max_points)
+            n_total, point_match = self._gate_fn(state, *slots, R_r, t_r, s_r, feat12, loop_kfs, sf, bucket)
+            if self._read(n_total) < MIN_TOTAL_MATCHES:
                 continue
+            self.sim3_counts["accepted"] += 1
             return cand, (R_r, t_r, s_r), point_match  # S_cm: cand frame -> current frame
         return None
 

@@ -17,7 +17,10 @@ detection and a global-BA chunk in engine/loop_closing.py).
   part of the key, and a closure constant is frozen at capture.
 - The first call with a new key runs `fn` eagerly (its result is that
   call's result, its launches real), then captures `fn` on static copies
-  of the same inputs. A later call copies its inputs into those static
+  of the same inputs; with `capture_at=n` the key's first n - 1 calls
+  only run eagerly and the n-th captures, for a program whose capture
+  costs more than an eager call and whose key may never repeat. A later
+  call copies its inputs into those static
   buffers on the stream (no host sync) and replays the graph; it returns
   clones of the outputs, so the next replay of any graph cannot overwrite
   what the caller keeps.
@@ -52,12 +55,12 @@ from typing import NamedTuple
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from ..ops import dlt_kernel, fast_kernel
+from ..ops import dlt_kernel, fast_kernel, sim3_kernel
 
 # The launch counts of the hand-written kernels' entries (`launches`, and
-# `recorded` under capture): the FAST and DLT modules' own and the DLT
-# kernel's gated entry's.
-KERNELS = (fast_kernel, dlt_kernel, dlt_kernel.gated)
+# `recorded` under capture): the FAST, DLT and Sim3 modules' own and the
+# DLT kernel's gated entry's.
+KERNELS = (fast_kernel, dlt_kernel, dlt_kernel.gated, sim3_kernel)
 
 
 class CaptureError(RuntimeError):
@@ -224,10 +227,12 @@ class Program:
     """`fn` as one captured CUDA graph per key on the card; see the module
     docstring."""
 
-    def __init__(self, fn, name: str):
+    def __init__(self, fn, name: str, capture_at: int = 1):
         self.fn = fn
         self.name = name
+        self.capture_at = capture_at
         self._graphs = {}
+        self._calls = {}  # eager calls of each key not captured yet
         self.captures = 0
         self.replays = 0
         self.capture_s = 0.0
@@ -247,7 +252,10 @@ class Program:
         g = self._graphs.get(key)
         if g is None:
             out = self.fn(*args)
-            self._graphs[key] = self._capture(spec, tensors)
+            n = self._calls[key] = self._calls.get(key, 0) + 1
+            if n >= self.capture_at:
+                self._graphs[key] = self._capture(spec, tensors)
+                del self._calls[key]
             return out
         for static, t in zip(g.inputs, tensors):
             static.copy_(t)
@@ -305,6 +313,7 @@ class Program:
     def clear(self):
         """Drop every graph (their key can no longer occur): the pool
         reuses their memory."""
+        self._calls.clear()
         if self._graphs:
             torch.cuda.synchronize()
             self._graphs.clear()

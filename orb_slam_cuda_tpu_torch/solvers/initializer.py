@@ -206,6 +206,21 @@ def _motions_from_h(H, K):
     return torch.stack(Rs), torch.stack(ts)
 
 
+def sets_from_keys(keys, valid, set_size: int):
+    """(NH,set_size) minimal sets from (NH,M) uniform keys: per hypothesis,
+    the rows of the largest keys among the valid ones, the first index
+    among equal keys (a stable descending sort), invalid rows (key -1) only
+    once the valid ones are used up, lowest index first. `set_size` rounds
+    of a first-maximum argmax, so it runs on the card without a read."""
+    r = torch.where(valid.to(keys.device)[None, :], keys, torch.full_like(keys, -1.0))
+    picks = []
+    for _ in range(min(set_size, r.shape[1])):
+        i = torch.argmax(r, dim=1, keepdim=True)  # the first maximum
+        picks.append(i)
+        r = r.scatter(1, i, torch.full_like(i, float("-inf"), dtype=r.dtype))
+    return torch.cat(picks, dim=1)
+
+
 def draw_sets(valid, n_hypotheses: int, generator: Optional[torch.Generator] = None,
               set_size: int = 8):
     """(NH,set_size) minimal sets: per hypothesis, the valid rows with the
@@ -213,9 +228,7 @@ def draw_sets(valid, n_hypotheses: int, generator: Optional[torch.Generator] = N
     M = valid.shape[0]
     r = torch.rand((n_hypotheses, M), generator=generator,
                    device=generator.device if generator is not None else "cpu")
-    r = torch.where(valid.to(r.device)[None, :], r, torch.full_like(r, -1.0))
-    order = torch.argsort(-r, dim=1, stable=True)
-    return order[:, :set_size].to(valid.device)
+    return sets_from_keys(r, valid, set_size).to(valid.device)
 
 
 # Minimal-set shapes (hypotheses, set size) of the RANSAC draw sites that
@@ -223,13 +236,25 @@ def draw_sets(valid, n_hypotheses: int, generator: Optional[torch.Generator] = N
 SAMPLE_SHAPES = {"sim3": (128, 3), "pnp": (512, 6)}
 
 
-def default_sampler(site: str, seed: int, valid):
-    """The engine's draws: uniform keys from a CPU generator seeded with
-    `seed`, so CPU and CUDA runs see the same sets."""
-    n, k = SAMPLE_SHAPES[site]
+def default_keys(site: str, seed: int, m: int):
+    """The uniform keys (NH,m) behind the engine's draws at `site`, from a
+    CPU generator seeded with `seed`: they do not depend on which rows are
+    valid."""
+    n, _ = SAMPLE_SHAPES[site]
     gen = torch.Generator(device="cpu")
     gen.manual_seed(int(seed))
-    return draw_sets(valid, n, gen, set_size=k)
+    return torch.rand((n, m), generator=gen)
+
+
+def default_sampler(site: str, seed: int, valid):
+    """The engine's draws: uniform keys from a CPU generator seeded with
+    `seed`, so CPU and CUDA runs see the same sets, masked by `valid` on
+    its device. On the card the keys go up through pinned memory without
+    waiting for the stream, and nothing is read back."""
+    keys = default_keys(site, seed, valid.shape[0])
+    if valid.device.type == "cuda":
+        keys = keys.pin_memory().to(valid.device, non_blocking=True)
+    return sets_from_keys(keys, valid, SAMPLE_SHAPES[site][1])
 
 
 def initialize_two_view(xy1, xy2, valid, K, generator=None, n_hypotheses: int = 200,

@@ -6,8 +6,9 @@ pair of Huber-robust edges per correspondence (uv1 against S12 X2c, uv2
 against S12^-1 X1c). Schedule: 5 LM iterations, chi2 > th2 pairs removed,
 10 more; fewer than 10 survivors of the first cut fail. Jacobians are
 forward-mode derivatives of the retraction at 0 (`sim3.tangent_jacobian`,
-in float64, rounded to float32); accept/reject is a tensor `where`, so the
-15 iterations never sync.
+in float64, rounded to float32); accept/reject is a tensor `where` and the
+6x6/7x7 solve checks no status, so the 15 iterations never sync and run
+inside a captured CUDA graph (the loop closer's `sim3_refine` program).
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from __future__ import annotations
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..geometry import sim3
@@ -48,7 +50,7 @@ def optimize_sim3(S12, x1c, x2c, uv1, uv2, inv_sigma2_1, inv_sigma2_2, valid,
     in the KF1/KF2 camera frames; uv1/uv2 (M,2) observations; inv_sigma2_*
     (M,) information by octave; valid (M,) bool."""
     dev = x1c.device
-    delta = math.sqrt(float(torch.tensor(th2, dtype=torch.float32)))
+    delta = math.sqrt(float(np.float32(th2)))
     isig = torch.cat([inv_sigma2_1, inv_sigma2_2])
     zero7 = torch.zeros((7,), dtype=torch.float32, device=dev)
     f64 = tuple(a.double() for a in (x1c, x2c, uv1, uv2))
@@ -65,7 +67,7 @@ def optimize_sim3(S12, x1c, x2c, uv1, uv2, inv_sigma2_1, inv_sigma2_2, valid,
 
     def lm_iters(S, active, n_iters):
         act2 = torch.cat([active, active])
-        lam = torch.tensor(1e-3, dtype=torch.float32, device=dev)
+        lam = torch.full((), 1e-3, dtype=torch.float32, device=dev)
         for _ in range(n_iters):
             r = stacked(S)
             S64 = tuple(a.double() for a in S)
@@ -76,13 +78,11 @@ def optimize_sim3(S12, x1c, x2c, uv1, uv2, inv_sigma2_1, inv_sigma2_2, valid,
             g = torch.einsum("mki,mk,m->i", J, r, w)
             if fix_scale:
                 # Pin the scale coordinate (g2o VertexSim3Expmap._fix_scale).
-                H = H.clone()
-                H[6, :] = 0.0
-                H[:, 6] = 0.0
-                H[6, 6] = 1.0
+                pin = torch.arange(7, device=dev) == 6
+                H = torch.where(pin[:, None] | pin[None, :], (pin[:, None] & pin[None, :]).to(H.dtype), H)
                 g = torch.cat([g[:6], g.new_zeros(1)])
             D = torch.diag(torch.clamp(torch.diagonal(H), min=1e-8))
-            xi = -torch.linalg.solve(H + lam * D, g)
+            xi = -torch.linalg.solve_ex(H + lam * D, g, check_errors=False)[0]
             if fix_scale:
                 xi = torch.cat([xi[:6], xi.new_zeros(1)])
             S_new = sim3.retract(S, xi)

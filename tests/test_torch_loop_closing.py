@@ -6,7 +6,11 @@ and the projection gate's point matches exact; the essential graph's
 sorted edge list exact; the global-BA problem's gather exact (floats
 within 1e-6); keyframe poses and points after _correct_loop, and after
 one chunked global BA, within 1e-3; an aborted global BA solves nothing
-more and leaves the map as it was."""
+more and leaves the map as it was. The Sim3 stage's four programs
+(`sim3_match`, `sim3_ransac`, `sim3_refine`, `loop_gate`) read nothing back: each runs
+under `_SyncSpy` (tests/torch_parity.py) on the ring with the port's own
+draws, the plain RANSAC standing in for the kernel with the spy suspended,
+and the stage closes the reference's loop through them."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -20,7 +24,7 @@ from orb_slam_cuda_tpu_torch.engine import loop_closing as tlc
 from orb_slam_cuda_tpu_torch.slam_map import MapConfig
 from orb_slam_cuda_tpu_torch.utils import convert
 import test_loop_closing as ring_fixture
-from torch_parity import assert_same, jax_sampler, to_np
+from torch_parity import _SyncSpy, assert_same, jax_sampler, to_np
 
 torch.set_num_threads(2)
 CAM, CFG = ring_fixture.CAM, ring_fixture.CFG
@@ -197,3 +201,47 @@ def test_port_built_ring_equals_reference(ring):
             assert_same(x, y, rtol=1e-5, atol=1e-4, what=name)
         else:
             assert_same(x, y, what=name)
+
+
+def test_sim3_programs_read_nothing_back(ring, monkeypatch):
+    """On the card each Sim3 stage of a candidate is one captured CUDA
+    graph; on the CPU its function runs under the spy, and so does the
+    default sampler's draw of the minimal sets between them. The RANSAC kernel
+    launches on the card where `eigh` would read back: its plain version
+    stands in here, with the spy suspended."""
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    from orb_slam_cuda_tpu_torch.ops import sim3_kernel
+
+    plain, kernel_calls = sim3_kernel.solve, []
+
+    def stand_in(*args, **kw):
+        kernel_calls.append(args[0].shape)
+        with _disable_current_modes():
+            return plain(*args, **kw)
+
+    monkeypatch.setattr(sim3_kernel, "solve", stand_in)
+    lc = tlc.LoopCloser(TCFG, TCAM, ring["tvocab"])  # the default sampler: keys drawn on the host
+    spies = {}
+    for program in lc.programs[2:]:
+        spy, fn = _SyncSpy(), program.fn
+
+        def run(*args, spy=spy, fn=fn):
+            with spy:
+                return fn(*args)
+
+        program.fn, spies[program.name] = run, spy
+    # The default sampler's draw runs between the programs, on the card too.
+    spies["draw"], sampler = _SyncSpy(), lc.sampler
+
+    def draw(*args):
+        with spies["draw"]:
+            return sampler(*args)
+
+    lc.sampler = draw
+    hit = lc._compute_sim3(ring["tst"], 15, [0])
+    assert hit is not None and hit[0] == 0
+    assert lc.sim3_counts == dict(match=1, ransac=1, refine=1, gate=1, accepted=1)
+    assert kernel_calls == [(ring["tst"].kf_mp.shape[1], 3)]
+    for name, spy in spies.items():
+        assert not spy.hits, (name, sorted(set(spy.hits)))

@@ -5,7 +5,11 @@ the reference's draws injected pick the same best hypothesis and return
 the exact inlier mask (poses within 1e-4; >= 95% of the 512 EPnP
 hypotheses, many of them degenerate six-point fits through outliers,
 count the same inliers); optimize_sim3 and
-optimize_pose_graph within 1e-4."""
+optimize_pose_graph within 1e-4. The Sim3 RANSAC through its wrapper
+(ops/sim3_kernel.py, the plain version on the CPU) equals the plain
+version and the JAX function exactly; the loop closer's draw from uniform
+keys (masked on the device inside its program) equals `draw_sets` and a
+stable numpy argsort exactly."""
 
 import jax
 import jax.numpy as jnp
@@ -24,6 +28,8 @@ from orb_slam_cuda_tpu_torch.solvers import pnp as tpnp
 from orb_slam_cuda_tpu_torch.solvers import pose_graph as tpg
 from orb_slam_cuda_tpu_torch.solvers import sim3_opt as topt
 from orb_slam_cuda_tpu_torch.solvers import sim3_solver as tsolver
+from orb_slam_cuda_tpu_torch.ops import sim3_kernel
+from orb_slam_cuda_tpu_torch.solvers import initializer as tinit
 from orb_slam_cuda_tpu_torch.solvers.initializer import default_sampler
 from orb_slam_cuda_tpu_torch.utils import convert
 from torch_parity import assert_same, jax_sets, to_np, tt
@@ -90,16 +96,49 @@ def test_sim3_ransac_with_reference_draws():
     j = jsolver.solve_sim3_ransac(jnp.asarray(x1), jnp.asarray(x2), jnp.asarray(uv1), jnp.asarray(uv2),
                                   jnp.asarray(valid), JCAM, jax.random.PRNGKey(7), jnp.asarray(th),
                                   jnp.asarray(th))
+    sets = jax_sets(7, valid, 128, 3)
     t = tsolver.solve_sim3_ransac(tt(x1), tt(x2), tt(uv1), tt(uv2), tt(valid), TCAM, tt(th), tt(th),
-                                  sample_sets=jax_sets(7, valid, 128, 3))
+                                  sample_sets=sets)
     assert_same(j.inliers, t.inliers, what="inlier mask")
     assert int(j.n_inliers) == int(t.n_inliers) and bool(j.ok) == bool(t.ok)
     for a, b in ((j.R, t.R), (j.t, t.t), (j.s, t.s)):
         assert_same(a, b, rtol=1e-4, atol=1e-4)
+    # The kernel's wrapper on CPU tensors and the plain version: the same.
+    w = sim3_kernel.solve(tt(x1), tt(x2), tt(uv1), tt(uv2), tt(valid), torch.as_tensor(sets).long(), tt(th),
+                          tt(th), TCAM)
+    p = tsolver.solve_sim3_ransac_plain(tt(x1), tt(x2), tt(uv1), tt(uv2), tt(valid), TCAM, tt(th), tt(th),
+                                        sample_sets=sets)
+    for a, b, c in zip(t, w, p):
+        assert torch.equal(a, b) and torch.equal(a, c)
     # The port's own draws (no injection) reach the same consensus here.
     d = tsolver.solve_sim3_ransac(tt(x1), tt(x2), tt(uv1), tt(uv2), tt(valid), TCAM, tt(th), tt(th),
                                   sample_sets=default_sampler("sim3", 7, tt(valid)))
     assert_same(j.inliers, d.inliers, what="own draws")
+
+
+@pytest.mark.parametrize("m, n_valid", [(100, 100), (100, 2), (100, 0), (1000, 613), (777, 3)],
+                         ids=["all_valid", "two_valid", "none_valid", "m1000", "m777_three_valid"])
+def test_sim3_draw_from_keys(m, n_valid):
+    """The loop closer's draw: uniform keys from the seeded CPU generator,
+    masked by the pairs and reduced to the minimal sets on the device
+    (`sets_from_keys`), equals a stable descending argsort of the masked
+    keys (numpy), `draw_sets` on the same generator and `default_sampler`.
+    Fewer than 3 valid rows fill up with invalid ones, lowest index first."""
+    rng = np.random.default_rng(m + n_valid)
+    valid = np.zeros(m, bool)
+    valid[rng.choice(m, n_valid, replace=False)] = True
+    keys = tinit.default_keys("sim3", 131 * 5 + 2, m)
+    r = np.where(valid, keys.numpy(), -1.0)
+    want = np.argsort(-r, axis=1, kind="stable")[:, :3]
+    got = tinit.sets_from_keys(keys, tt(valid), 3)
+    np.testing.assert_array_equal(to_np(got), want)
+    gen = torch.Generator().manual_seed(131 * 5 + 2)
+    np.testing.assert_array_equal(to_np(tinit.draw_sets(tt(valid), 128, gen, set_size=3)), want)
+    np.testing.assert_array_equal(to_np(default_sampler("sim3", 131 * 5 + 2, tt(valid))), want)
+    if n_valid >= 3:
+        assert valid[want].all()
+    else:
+        assert valid[want].sum() == 128 * n_valid
 
 
 def _pnp_problem(rng, m=200, n_out=80):

@@ -236,6 +236,29 @@ def test_native_unfilter_is_the_ports_own_build():
     assert native_build.build(png.SOURCE, "PNG unfilter") == path
 
 
+def test_native_build_hashes_the_headers_a_source_includes(tmp_path):
+    """A header included with `#include "..."` (and the headers it
+    includes) is part of the library's hash: editing it builds anew. The
+    kernels' shared Jacobi header is found from both of its sources."""
+    (tmp_path / "sub").mkdir()
+    (tmp_path / "a.h").write_text('#include "sub/b.h"\nconstexpr int A = 1;\n')
+    (tmp_path / "sub" / "b.h").write_text("constexpr int B = 2;\n")
+    src = tmp_path / "lib.cpp"
+    src.write_text('#include <cmath>\n#include "a.h"\n#include "missing.h"\nextern "C" int f() { return A + B; }\n')
+    got = native_build.sources(str(src))
+    assert got == [str(src), str(tmp_path / "a.h"), str(tmp_path / "sub" / "b.h")]
+    src.write_text('#include <cmath>\n#include "a.h"\nextern "C" int f() { return A + B; }\n')
+    out = str(tmp_path / "out")
+    first = native_build.build(str(src), "include test", build_dir=out)
+    assert native_build.build(str(src), "include test", build_dir=out) == first
+    (tmp_path / "sub" / "b.h").write_text("constexpr int B = 3;\n")
+    second = native_build.build(str(src), "include test", build_dir=out)
+    assert second != first and os.path.exists(second)
+    csrc = os.path.join(REPO, "orb_slam_cuda_tpu_torch", "csrc")
+    for name in ("triangulate_dlt.cu", "sim3_ransac.cu"):
+        assert native_build.sources(os.path.join(csrc, name))[1:] == [os.path.join(csrc, "jacobi4.cuh")]
+
+
 def test_failed_native_build_raises_not_switches(monkeypatch):
     def no_compiler(*a, **k):
         raise RuntimeError("PNG unfilter: cannot run 'g++'")

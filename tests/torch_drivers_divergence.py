@@ -121,6 +121,7 @@ def instrument_loops(slam, engine: str) -> None:
     (LOOP: frame, BoW candidates, consistent candidates) and every Sim3
     candidate's gates (SIM3: RANSAC ok and inliers, the refined inliers,
     the loop group's projection matches), then the round's hit."""
+    import contextlib
     import importlib
 
     pkg = "orb_slam_cuda_tpu" if engine == "jax" else "orb_slam_cuda_tpu_torch"
@@ -138,7 +139,11 @@ def instrument_loops(slam, engine: str) -> None:
         return out
 
     def logged_compute(state, kf_slot, cands):
-        out = compute(state, kf_slot, cands)
+        # The port's Sim3 stages are programs: the hooks below read back, so
+        # on the card they run eagerly (a capture would refuse the reads).
+        with (importlib.import_module(f"{pkg}.engine.programs").eager() if engine == "port"
+              else contextlib.nullcontext()):
+            out = compute(state, kf_slot, cands)
         print("LOOP", slam.frame_id, "kf", int(kf_slot), "hit", None if out is None else int(out[0]), flush=True)
         return out
 
