@@ -89,12 +89,16 @@ Phases, each printing its own lines:
      the stereo and RGB-D paths do);
   6a. the Sim3 RANSAC kernel (csrc/sim3_ransac.cu) on one real call of the
      loop path (the last candidate whose RANSAC passed, its inputs gathered
-     again from that call's map): launched twice (torch.equal) and held
-     against its plain version (float32 `eigh`): `ok` equal, n_inliers
-     within 2, inlier masks parted on at most 2 matches, R, t, s within
-     1e-4 of float64 Horn on the inliers it refitted on; prints its device
-     time warm and cold and as called, the plain version's time and the
-     bound (Horn's Jacobi sweeps counted on the call's inputs);
+     again from that call's map) and on a full-width synthetic call (2,000
+     matches, every pair valid, 128 minimal sets): on each, launched twice
+     (torch.equal) and held against its plain version (float32 `eigh`):
+     `ok` equal, n_inliers within 2, inlier masks parted on at most 2
+     matches, R, t, s within 1e-4 of float64 Horn on the inliers it
+     refitted on; prints its device time warm and cold and as called and
+     the bound (Horn's Jacobi sweeps counted on the call's inputs) on both
+     calls, and the plain version's time on the real one. Its gate of one
+     device launch a call (torch.profiler, on the full-width call) runs in
+     phase 3, before the vocabulary phase;
   6b. parallel: the distributed back end on the loop path's final map.
      (a) its global-BA problem (as the loop closer gathers it) solved by
      bundle_adjust and by distributed_bundle_adjust on a 1-rank NCCL
@@ -1607,18 +1611,128 @@ def phase_loop_path(cam, poses, frames, device=None):
     return launches, slam, recorder.last_ok
 
 
-def phase_sim3_kernel(slam, call):
+def sim3_against_plain(args, label: str):
+    """The Sim3 kernel launched twice on `args` (torch.equal) and held
+    against its plain version (float32 `eigh`) and against float64 Horn
+    on the inliers it refitted on; gated, and printed under `label`.
+    Returns (the kernel's outputs, the plain version's result, error
+    against float64, error against the plain version, masks parted)."""
+    import torch
+
+    from orb_slam_cuda_tpu_torch.ops import sim3_kernel
+    from orb_slam_cuda_tpu_torch.solvers import sim3_solver
+
+    x1, x2, uv1, uv2, valid, sets, th1, th2, cam, fix, min_in = args
+    out = sim3_kernel.launch(*args)
+    again = sim3_kernel.launch(*args)
+    want = sim3_solver.solve_sim3_ransac_plain(x1, x2, uv1, uv2, valid, cam, th1, th2, fix_scale=fix,
+                                               min_inliers=min_in, sample_sets=sets)
+    R, t, s, inl, n_in, ok, info, counts, params = out
+    ref = sim3_kernel.reference64(x1, x2, uv1, uv2, valid, sets, th1, th2, cam, fix, info, params)
+    torch.cuda.synchronize()
+    err64 = max(float((a.double() - b).abs().max()) for a, b in zip((R, t, s), ref))
+    err_plain = max(float((a - b).abs().max()) for a, b in zip((R, t, s), want[:3]))
+    parted = int((inl != want.inliers).sum())
+    best = int(info[0])
+    log(f"sim3_ransac on {label}: {x1.shape[0]} matches, {int(valid.sum())} valid pairs; best hypothesis {best} of "
+        f"{sets.shape[0]} ({int(counts[best])} inliers), refit kept {bool(info[1])}; kernel ok {bool(ok)}, "
+        f"{int(n_in)} inliers; plain version ok {bool(want.ok)}, {int(want.n_inliers)} inliers; masks part on "
+        f"{parted} (tolerance {SIM3_PARTED}); R, t, s {err64:.3e} from float64 Horn on the inliers refitted on "
+        f"(tolerance {SIM3_TOL64}), {err_plain:.3e} from the plain version's")
+    check_gates(f"sim3_ransac kernel, {label}", {
+        "ok equal to the plain version's": bool(ok) == bool(want.ok),
+        f"n_inliers within {SIM3_N_DIFF} of the plain version's":
+            abs(int(n_in) - int(want.n_inliers)) <= SIM3_N_DIFF,
+        f"inlier masks part on <= {SIM3_PARTED} matches": parted <= SIM3_PARTED,
+        f"R, t, s within {SIM3_TOL64} of float64 Horn": err64 <= SIM3_TOL64,
+        "two launches torch.equal": all(torch.equal(a, b) for a, b in zip(out, again)),
+        "the call's RANSAC passes": bool(ok),
+    })
+    return out, want, err64, err_plain, parted
+
+
+def sim3_times(args, out, label: str) -> dict:
+    """The Sim3 kernel's device time on `args` warm and cold and as called,
+    and its bound (the function's least work on these inputs, Horn's
+    Jacobi sweeps counted on them), printed under `label`."""
+    import torch
+
+    from orb_slam_cuda_tpu_torch.ops import sim3_kernel
+    from orb_slam_cuda_tpu_torch.solvers import sim3_solver
+
+    x1, x2, uv1, uv2, valid, sets, th1, th2, cam, fix, min_in = args
+    flush = torch.empty(128 * 1024 * 1024 // 4, device=x1.device)  # 128 MB > the 50 MB L2
+
+    def kern():
+        return sim3_kernel.launch(*args)
+
+    warm = device_median_ms(kern, inner=10)
+    cold = device_median_ms(kern, before=flush.zero_)
+    called = cuda_median_ms(lambda: sim3_kernel.solve(*args))
+    counts, params, info = out[7], out[8], out[6]
+    m, nh, n_valid, best = x1.shape[0], sets.shape[0], int(valid.sum()), int(info[0])
+    n_best, p = int(counts[best]), params[best]
+    best_inl = sim3_solver.count_inliers(p[:9].reshape(3, 3), p[9:12], p[12], x1, x2, uv1, uv2, valid, cam, th1, th2)
+    sweeps = horn_sweeps(x1, x2, sets, best_inl)
+    ops = (nh * (n_valid * OPS_SIM3_MATCH + OPS_SIM3_SET) + (nh + 1) * OPS_HORN + int(sweeps.sum()) * OPS_DLT_SWEEP
+           + nh + n_best * OPS_SIM3_INLIER + n_valid * OPS_SIM3_MATCH)
+    nbytes = m * BYTES_SIM3_MATCH + n_valid * BYTES_SIM3_VALID + nh * BYTES_SIM3_SET + BYTES_SIM3_FIXED
+    sweep_counts = {int(k): int(v) for k, v in zip(*torch.unique(sweeps, return_counts=True))}
+    by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    by_ops = ops / PEAK_FP32_OPS_PER_S * 1e3
+    bound_ms, bound_by = max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations")
+    log(f"sim3_ransac per call on {label} ({m} matches, {n_valid} valid, {nh} hypotheses): device {warm:.4f} ms warm "
+        f"(10 calls a pair of events), {cold:.4f} ms cold L2 (1 call a pair); as called {called:.4f} ms; bound "
+        f"{bound_ms:.6f} ms by {bound_by} ({by_bytes:.6f} by {nbytes} bytes, {by_ops:.6f} by {ops} FP32 "
+        f"operations, Horn's Jacobi sweeps {sweep_counts} of its {nh + 1} N-matrices); share of bound reached "
+        f"{bound_ms / warm:.4f} warm")
+    return {"matches": m, "valid": n_valid, "ms": warm, "cold_l2_ms": cold, "as_called_ms": called,
+            "bound_ms": bound_ms, "bound_by": bound_by, "jacobi_sweeps": sweep_counts}
+
+
+def sim3_full_width_args(device):
+    """The Sim3 kernel's arguments for a full-width call: 2,000 matches,
+    every pair valid, 128 minimal sets (`sim3_kernel.synthetic_problem`)."""
+    from orb_slam_cuda_tpu_torch.engine import loop_closing
+    from orb_slam_cuda_tpu_torch.ops import sim3_kernel
+
+    cam, p = sim3_kernel.synthetic_problem(device, 2000, seed=2000)
+    return (p["x1"], p["x2"], p["uv1"], p["uv2"], p["valid"], sim3_kernel.synthetic_sets(p, 131 * 15), p["th1"],
+            p["th2"], cam, False, loop_closing.MIN_SIM3_INLIERS)
+
+
+def phase_sim3_launches() -> int:
+    """The Sim3 kernel's device launches a call (torch.profiler over host
+    and device) on the full-width call, gated on one, the kernel. It runs
+    before the vocabulary phase: in this script's process, profiles taken
+    after it recorded none or only some of a call's device events."""
+    import torch
+
+    from orb_slam_cuda_tpu_torch.ops import sim3_kernel
+
+    launches0 = sim3_kernel.launches
+    args = sim3_full_width_args(torch.device("cuda"))
+    names = device_event_names(lambda: sim3_kernel.launch(*args))
+    sim3_kernel.launches = launches0  # the profile's launches are not a path's
+    log(f"sim3_ransac device launches a call (torch.profiler): {len(names)} {names}")
+    check_gates("sim3_ransac kernel",
+                {"one device launch a Sim3 call": len(names) == 1 and "ransac_kernel" in names[0]})
+    return len(names)
+
+
+def phase_sim3_kernel(slam, call, device_launches: int):
     """The Sim3 RANSAC kernel on one real call of the loop path (`call`, the
     arguments of the last `sim3_ransac` program call whose RANSAC passed:
     the BoW match's pairs of the two keyframes, all their features, pairs
-    without two live points invalid, and the draw's minimal sets), the
-    kernel launched twice (torch.equal) and held against its plain
-    version (float32 `eigh`) and against float64 Horn on the inliers it
-    refitted on; its device time warm and cold and as called, the plain
-    version's time and the bound. Returns the kernel-table row (without
+    without two live points invalid, and the draw's minimal sets) and on a
+    full-width synthetic one (2,000 matches, every pair valid, 128 minimal
+    sets, `sim3_kernel.synthetic_problem`): on each, the kernel launched
+    twice (torch.equal) and held against its plain version (float32
+    `eigh`) and against float64 Horn on the inliers it refitted on, its
+    device time warm and cold and as called, and the bound; one device
+    launch a call (`device_launches`, from phase_sim3_launches); the plain
+    version's time on the real call. Returns the kernel-table row (without
     `launches`)."""
-    import torch
-
     from orb_slam_cuda_tpu_torch.engine import loop_closing
     from orb_slam_cuda_tpu_torch.ops import sim3_kernel
     from orb_slam_cuda_tpu_torch.solvers import sim3_solver
@@ -1630,69 +1744,22 @@ def phase_sim3_kernel(slam, call):
     cam, fix, min_in = lc.cam, lc.fix_scale, loop_closing.MIN_SIM3_INLIERS
     args = (x1, x2, uv1, uv2, valid, sets, th1, th2, cam, fix, min_in)
     launches0 = sim3_kernel.launches
-    out = sim3_kernel.launch(*args)
-    again = sim3_kernel.launch(*args)
-
-    def plain():
-        return sim3_solver.solve_sim3_ransac_plain(x1, x2, uv1, uv2, valid, cam, th1, th2, fix_scale=fix,
-                                                   min_inliers=min_in, sample_sets=sets)
-
-    want = plain()
-    R, t, s, inl, n_in, ok, info, counts, params = out
-    ref = sim3_kernel.reference64(x1, x2, uv1, uv2, valid, sets, th1, th2, cam, fix, info, params)
-    torch.cuda.synchronize()
-    err64 = max(float((a.double() - b).abs().max()) for a, b in zip((R, t, s), ref))
-    err_plain = max(float((a - b).abs().max()) for a, b in zip((R, t, s), want[:3]))
-    parted = int((inl != want.inliers).sum())
-    m, n_valid, best = x1.shape[0], int(valid.sum()), int(info[0])
-    n_best = int(counts[best])
-    log(f"sim3_ransac on the loop path's last passing call: {m} matches, {n_valid} valid pairs; "
-        f"best hypothesis {best} of {sets.shape[0]} ({n_best} inliers), refit kept {bool(info[1])}; kernel ok "
-        f"{bool(ok)}, {int(n_in)} inliers; plain version ok {bool(want.ok)}, {int(want.n_inliers)} inliers; masks "
-        f"part on {parted} (tolerance {SIM3_PARTED}); R, t, s {err64:.3e} from float64 Horn on the inliers refitted "
-        f"on (tolerance {SIM3_TOL64}), {err_plain:.3e} from the plain version's")
-    check_gates("sim3_ransac kernel", {
-        "ok equal to the plain version's": bool(ok) == bool(want.ok),
-        f"n_inliers within {SIM3_N_DIFF} of the plain version's":
-            abs(int(n_in) - int(want.n_inliers)) <= SIM3_N_DIFF,
-        f"inlier masks part on <= {SIM3_PARTED} matches": parted <= SIM3_PARTED,
-        f"R, t, s within {SIM3_TOL64} of float64 Horn": err64 <= SIM3_TOL64,
-        "two launches torch.equal": all(torch.equal(a, b) for a, b in zip(out, again)),
-        "the call's RANSAC passes": bool(ok),
-    })
-
-    flush = torch.empty(128 * 1024 * 1024 // 4, device=x1.device)  # 128 MB > the 50 MB L2
-
-    def kern():
-        return sim3_kernel.launch(*args)
-
-    warm = device_median_ms(kern, inner=10)
-    cold = device_median_ms(kern, before=flush.zero_)
-    called = cuda_median_ms(lambda: sim3_kernel.solve(*args))
-    plain_ms = cuda_median_ms(plain)
-    nh, p = sets.shape[0], params[best]
-    best_inl = sim3_solver.count_inliers(p[:9].reshape(3, 3), p[9:12], p[12], x1, x2, uv1, uv2, valid, cam, th1, th2)
-    sweeps = horn_sweeps(x1, x2, sets, best_inl)
-    ops = (nh * (n_valid * OPS_SIM3_MATCH + OPS_SIM3_SET) + (nh + 1) * OPS_HORN + int(sweeps.sum()) * OPS_DLT_SWEEP
-           + nh + n_best * OPS_SIM3_INLIER + n_valid * OPS_SIM3_MATCH)
-    nbytes = m * BYTES_SIM3_MATCH + n_valid * BYTES_SIM3_VALID + nh * BYTES_SIM3_SET + BYTES_SIM3_FIXED
-    sweep_counts = {int(k): int(v) for k, v in zip(*torch.unique(sweeps, return_counts=True))}
-    by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    by_ops = ops / PEAK_FP32_OPS_PER_S * 1e3
-    bound_ms, bound_by = max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations")
-    log(f"sim3_ransac per call ({m} matches, {nh} hypotheses): device {warm:.4f} ms warm (10 calls a pair of "
-        f"events), {cold:.4f} ms cold L2 (1 call a pair); as called {called:.4f} ms; plain {plain_ms:.4f} ms; bound "
-        f"{bound_ms:.6f} ms by {bound_by} ({by_bytes:.6f} by {nbytes} bytes, {by_ops:.6f} by {ops} FP32 "
-        f"operations, Horn's Jacobi sweeps {sweep_counts} of its {nh + 1} N-matrices); share of bound reached "
-        f"{bound_ms / warm:.4f} warm; library call: none (no one PyTorch call computes Sim3 RANSAC, and eigh reads "
-        f"back)")
+    out, want, err64, err_plain, parted = sim3_against_plain(args, "the loop path's last passing call")
+    real = sim3_times(args, out, "the loop path's last passing call")
+    plain_ms = cuda_median_ms(lambda: sim3_solver.solve_sim3_ransac_plain(
+        x1, x2, uv1, uv2, valid, cam, th1, th2, fix_scale=fix, min_inliers=min_in, sample_sets=sets))
+    log(f"sim3_ransac plain version {plain_ms:.4f} ms a call; library call: none (no one PyTorch call computes Sim3 "
+        "RANSAC, and eigh reads back)")
+    wargs = sim3_full_width_args(x1.device)
+    check_gates("sim3_ransac full-width call", {"every pair valid": bool(wargs[4].all())})
+    wout, _, werr64, _, _ = sim3_against_plain(wargs, "the full-width synthetic call")
+    full = sim3_times(wargs, wout, "the full-width synthetic call")
     sim3_kernel.launches = launches0  # the comparison's launches are not the path's
     return {"name": "sim3_ransac", "route": "cuda", "source": SIM3_SOURCE,
             "replaces": "orb_slam_cuda_tpu/solvers/sim3_solver.py:78", "max_abs_err": err_plain,
-            "max_abs_err_f64": err64, "matches": m, "valid": n_valid, "inliers": int(n_in),
-            "inliers_plain": int(want.n_inliers), "masks_parted": parted, "ms": warm, "cold_l2_ms": cold,
-            "as_called_ms": called, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "jacobi_sweeps": sweep_counts, "library_ms": None}
+            "max_abs_err_f64": err64, "inliers": int(out[4]), "inliers_plain": int(want.n_inliers),
+            "masks_parted": parted, **real, "plain_ms": plain_ms, "library_ms": None,
+            "device_launches_a_call": device_launches, "full_width": dict(full, max_abs_err_f64=werr64)}
 
 
 def _max_abs(a, b) -> float:
@@ -2148,6 +2215,7 @@ def main() -> int:
     pyramid_row, pair_row = timed("kernels", phase_kernels, frames[0], rgbd[2][0][0])
     timed("kernels", check_against_cpu, frames[0])
     timed("kernels", phase_extract_launches, frames[0])
+    sim3_device_launches = timed("kernels", phase_sim3_launches)
     vocab = timed("vocabulary", phase_vocabulary)
     launches, orbit_slam = timed("orbit path", phase_main_path, cam, poses, frames, vocab=vocab)
     dlt_row, gated_row = timed("kernels", phase_dlt_kernel, orbit_slam)
@@ -2159,7 +2227,7 @@ def main() -> int:
         loop_launches, loop_slam, sim3_call = timed("loop path", phase_loop_path,
                                                     *timed("loop fixture", make_loop_fixture, "cuda"))
         launches += loop_launches
-        sim3_row = timed("kernels", phase_sim3_kernel, loop_slam, sim3_call)
+        sim3_row = timed("kernels", phase_sim3_kernel, loop_slam, sim3_call, sim3_device_launches)
         del sim3_call
         timed("parallel", phase_parallel, loop_slam)
         del loop_slam

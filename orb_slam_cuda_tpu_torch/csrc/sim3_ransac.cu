@@ -13,24 +13,41 @@
 // solve_sim3_ransac_plain (`torch.linalg.eigh`, which on the card reads a
 // status back to the host and so cannot run inside a captured CUDA graph).
 //
-// Two launches: `hypotheses_kernel`, one block a hypothesis: thread 0
-// solves Horn in double (the 4x4 Jacobi of jacobi4.cuh, shared with the
-// DLT kernel), then the block counts that hypothesis's inliers over M in
-// float32 (`__syncthreads_count`, an integer sum: exact in any order).
-// `refit_kernel`, one block: the first maximum of the counts, the refit's
-// centroids and moments (each thread sums its own matches in index order
-// in double, then a pairwise tree adds the threads' sums: a fixed order,
-// so two runs are bit-equal), Horn, the refit's count, the choice and the
-// inlier mask. No float atomics anywhere.
+// One launch, one block of 256 threads a hypothesis:
+//  1. thread 0 solves the hypothesis's Horn in double (the 4x4 Jacobi of
+//     jacobi4.cuh, shared with the DLT kernel) while warps 1-7 stage the
+//     valid matches of the first TILE slots into shared memory in index
+//     order (a ballot and popc scan, each warp a contiguous run of slots);
+//  2. the block counts the hypothesis's inliers over the staged matches
+//     in float32 (later tiles staged by all warps), an integer sum;
+//     thread 0 writes the count and the Sim3 and takes a ticket
+//     (`__threadfence`, then `atomicInc`, which wraps the counter to 0 at
+//     the last block: it is 0 again after every call, eager or replayed
+//     in a CUDA graph, with no host write);
+//  3. the last block to take one refits: warp 0 finds the first maximum
+//     of the counts (shuffles over (count, index), the lower index on a
+//     tie, as `argmax`), then from the staged matches, read from global
+//     memory once where M <= TILE (past it, each pass stages the tiles
+//     again): the best hypothesis's inliers and their centroids, the
+//     centred moments, Horn, the refit's count and the inlier mask,
+//     written once.
+// The double sums go in a fixed order (each thread over its staged
+// matches in index order, a shuffle tree, then the warps in order), so two
+// runs are bit-equal. No float atomics; the ticket is the one integer
+// atomic. A ticket is shared by calls on one stream: two calls must not
+// run at once on one ticket.
 //
-// Bound at the loop path's shapes (M = 2000 matches, 128 hypotheses):
-// the count is 128 x V bidirectional projections over the V valid
-// matches, 78 float32 operations each, against 48 B read for each valid
-// match, and `valid` read and the mask written for every one (2 B): bound
-// by operations (chip_smoke.py counts both, Horn's sweeps included).
-// The Horn solves are a dependent chain of a few microseconds in one
-// thread, and the single-block refit passes are latency: a simple kernel
-// that is right, not yet a fast one.
+// Bound at the loop path's shapes (M = 2000 matches, 128 hypotheses): the
+// count is 128 x V bidirectional projections over the V valid matches, 78
+// float32 operations each, against 48 B read for each valid match, and
+// `valid` read and the mask written for every one (2 B): bound by
+// operations (chip_smoke.py counts both, Horn's sweeps included). At the
+// loop path's real call (V ~ 84) that bound is ~0.015 us: the kernel is
+// latency, one launch and two dependent Horn chains (the hypotheses', then
+// the refit's) with short passes between. Hence one launch, the staging
+// hidden under the first chain, and every pass after it over the staged
+// valid matches in shared memory rather than over all M slots in global
+// memory.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -41,6 +58,10 @@
 namespace {
 
 constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+constexpr int TILE = 2048;  // slots staged at once: the loop path's M = 2000 in one
+constexpr int RMAX = (TILE + (WARPS - 1) * 32 - 1) / ((WARPS - 1) * 32);  // rounds of a staging warp
+constexpr unsigned FULL = 0xffffffffu;
 constexpr int MAX_SWEEPS = 12;
 constexpr double DBL_EPS = 2.220446049250313e-16;
 constexpr int NPARAM = 13;  // R (row-major 9), t (3), s
@@ -51,6 +72,27 @@ struct Cam {
 
 struct Sim3f {
   float R[9], t[3], s;
+};
+
+// The matches: x1, x2 (m,3), uv1, uv2 (m,2), th1, th2 (m,), valid (m,).
+struct Matches {
+  const float* x1;
+  const float* x2;
+  const float2* uv1;
+  const float2* uv2;
+  const float* th1;
+  const float* th2;
+  const bool* valid;
+  int m;
+};
+
+// The valid matches among TILE slots, in index order, and the tile's mask.
+struct Tile {
+  float x1[3][TILE], x2[3][TILE];
+  float2 uv1[TILE], uv2[TILE];
+  float th1[TILE], th2[TILE];
+  int slot[TILE];
+  unsigned char flag[TILE];
 };
 
 // Horn's rotation, scale and translation from the centred cross-covariance
@@ -135,17 +177,54 @@ __device__ Sim3f horn(const double (&M)[3][3], double y1sq, const double (&C)[6]
   return o;
 }
 
-// Match i an inlier of the hypothesis: x2 into frame 1 projected near uv1
-// and x1 into frame 2 near uv2 (squared pixels under th1, th2), both in
-// front of their camera (geometry/camera.py::project's |z| clamp at 1e-9).
-__device__ __forceinline__ bool inlier(const Sim3f& S, float si, const float* __restrict__ x1,
-                                       const float* __restrict__ x2, const float2* __restrict__ uv1,
-                                       const float2* __restrict__ uv2, const float* __restrict__ th1,
-                                       const float* __restrict__ th2, const bool* __restrict__ valid, Cam cam,
-                                       int i) {
-  if (!valid[i]) return false;
-  const float a0 = x2[3 * i], a1 = x2[3 * i + 1], a2 = x2[3 * i + 2];
-  const float b0 = x1[3 * i] - S.t[0], b1 = x1[3 * i + 1] - S.t[1], b2 = x1[3 * i + 2] - S.t[2];
+// Horn on hypothesis h's minimal set (indices clamped into the matches).
+__device__ Sim3f hypothesis(const Matches& in, const int64_t* __restrict__ sets, int h, bool fix_scale) {
+  double p1[3][3], p2[3][3], c1[3] = {0, 0, 0}, c2[3] = {0, 0, 0};
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const int64_t j = sets[3 * h + k];
+    const int i = (int)(j < 0 ? 0 : j >= in.m ? in.m - 1 : j);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      p1[k][c] = in.x1[3 * i + c];
+      p2[k][c] = in.x2[3 * i + c];
+      c1[c] += p1[k][c];
+      c2[c] += p2[k][c];
+    }
+  }
+  double M[3][3] = {}, C[6] = {}, y1sq = 0.0;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    c1[c] /= 3.0;
+    c2[c] /= 3.0;
+  }
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const double y1[3] = {p1[k][0] - c1[0], p1[k][1] - c1[1], p1[k][2] - c1[2]};
+    const double y2[3] = {p2[k][0] - c2[0], p2[k][1] - c2[1], p2[k][2] - c2[2]};
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+#pragma unroll
+      for (int b = 0; b < 3; ++b) M[a][b] += y2[a] * y1[b];
+    }
+    y1sq += y1[0] * y1[0] + y1[1] * y1[1] + y1[2] * y1[2];
+    C[0] += y2[0] * y2[0];
+    C[1] += y2[0] * y2[1];
+    C[2] += y2[0] * y2[2];
+    C[3] += y2[1] * y2[1];
+    C[4] += y2[1] * y2[2];
+    C[5] += y2[2] * y2[2];
+  }
+  return horn(M, y1sq, C, c1, c2, fix_scale);
+}
+
+// Staged match j an inlier of the hypothesis: x2 into frame 1 projected
+// near uv1 and x1 into frame 2 near uv2 (squared pixels under th1, th2),
+// both in front of their camera (geometry/camera.py::project's |z| clamp
+// at 1e-9).
+__device__ __forceinline__ bool inlier(const Sim3f& S, float si, const Tile& g, int j, Cam cam) {
+  const float a0 = g.x2[0][j], a1 = g.x2[1][j], a2 = g.x2[2][j];
+  const float b0 = g.x1[0][j] - S.t[0], b1 = g.x1[1][j] - S.t[1], b2 = g.x1[2][j] - S.t[2];
   float p[3], q[3];
 #pragma unroll
   for (int r = 0; r < 3; ++r) {
@@ -154,204 +233,307 @@ __device__ __forceinline__ bool inlier(const Sim3f& S, float si, const float* __
   }
   const float iz1 = 1.0f / (fabsf(p[2]) < 1e-9f ? 1e-9f : p[2]);
   const float iz2 = 1.0f / (fabsf(q[2]) < 1e-9f ? 1e-9f : q[2]);
-  const float2 o1 = uv1[i], o2 = uv2[i];
+  const float2 o1 = g.uv1[j], o2 = g.uv2[j];
   const float du1 = cam.fx * (p[0] * iz1) + cam.cx - o1.x, dv1 = cam.fy * (p[1] * iz1) + cam.cy - o1.y;
   const float du2 = cam.fx * (q[0] * iz2) + cam.cx - o2.x, dv2 = cam.fy * (q[1] * iz2) + cam.cy - o2.y;
-  return du1 * du1 + dv1 * dv1 < th1[i] && du2 * du2 + dv2 * dv2 < th2[i] && p[2] > 0.0f && q[2] > 0.0f;
+  return du1 * du1 + dv1 * dv1 < g.th1[j] && du2 * du2 + dv2 * dv2 < g.th2[j] && p[2] > 0.0f && q[2] > 0.0f;
 }
 
 __device__ __forceinline__ float inv_scale(float s) { return 1.0f / (s < 1e-12f ? 1e-12f : s); }
 
-// The block's inlier count of S over all m matches.
-__device__ int count_inliers(const Sim3f& S, const float* x1, const float* x2, const float2* uv1,
-                             const float2* uv2, const float* th1, const float* th2, const bool* valid, Cam cam,
-                             int m) {
-  const float si = inv_scale(S.s);
-  int n = 0;
-  for (int base = 0; base < m; base += THREADS) {
-    const int i = base + threadIdx.x;
-    n += __syncthreads_count(i < m && inlier(S, si, x1, x2, uv1, uv2, th1, th2, valid, cam, i));
+// Barrier 1 for the first `n` threads' warps that stage (barrier 0 is
+// __syncthreads).
+__device__ __forceinline__ void stage_sync(int n) { asm volatile("bar.sync 1, %0;" ::"r"(n) : "memory"); }
+
+// Stages the valid matches among slots [lo, hi) (hi - lo <= TILE) into `g`
+// in index order. Warps w0..WARPS-1 take part, each a contiguous run of
+// slots: one byte of `valid` a slot, a ballot and popc per 32 slots, the
+// warps' totals through `wcount`, then each valid match's 48 B. Returns the
+// number staged to every thread that took part. The caller synchronizes
+// the block before (g and wcount free) and after (g written).
+__device__ int stage(const Matches& in, int lo, int hi, int w0, Tile& g, int* wcount) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nw = WARPS - w0, q = warp - w0;
+  const int rounds = (hi - lo + nw * 32 - 1) / (nw * 32);
+  const int base = lo + q * rounds * 32;
+  bool v[RMAX];
+  unsigned b[RMAX];
+#pragma unroll
+  for (int r = 0; r < RMAX; ++r) {
+    const int i = base + r * 32 + lane;
+    v[r] = r < rounds && i < hi && in.valid[i];
+  }
+  int tot = 0;
+#pragma unroll
+  for (int r = 0; r < RMAX; ++r) {
+    b[r] = __ballot_sync(FULL, v[r]);
+    tot += __popc(b[r]);
+  }
+  if (lane == 0) wcount[q] = tot;
+  stage_sync(nw * 32);
+  int off = 0, n = 0;
+  for (int k = 0; k < nw; ++k) {
+    const int c = wcount[k];
+    n += c;
+    off += k < q ? c : 0;
+  }
+  const unsigned below = (1u << lane) - 1u;
+#pragma unroll
+  for (int r = 0; r < RMAX; ++r) {
+    if (v[r]) {
+      const int i = base + r * 32 + lane, j = off + __popc(b[r] & below);
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        g.x1[c][j] = __ldg(in.x1 + 3 * i + c);
+        g.x2[c][j] = __ldg(in.x2 + 3 * i + c);
+      }
+      g.uv1[j] = __ldg(in.uv1 + i);
+      g.uv2[j] = __ldg(in.uv2 + i);
+      g.th1[j] = __ldg(in.th1 + i);
+      g.th2[j] = __ldg(in.th2 + i);
+      g.slot[j] = i;
+    }
+    off += __popc(b[r]);
   }
   return n;
 }
 
-__global__ void __launch_bounds__(THREADS)
-hypotheses_kernel(const float* __restrict__ x1, const float* __restrict__ x2, const float2* __restrict__ uv1,
-                  const float2* __restrict__ uv2, const float* __restrict__ th1, const float* __restrict__ th2,
-                  const bool* __restrict__ valid, const int64_t* __restrict__ sets, int m, Cam cam,
-                  int fix_scale, int* __restrict__ counts, float* __restrict__ params) {
-  __shared__ Sim3f S;
-  const int h = blockIdx.x;
-  if (threadIdx.x == 0) {
-    double p1[3][3], p2[3][3], c1[3] = {0, 0, 0}, c2[3] = {0, 0, 0};
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      const int64_t j = sets[3 * h + k];
-      const int i = (int)(j < 0 ? 0 : j >= m ? m - 1 : j);
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        p1[k][c] = x1[3 * i + c];
-        p2[k][c] = x2[3 * i + c];
-        c1[c] += p1[k][c];
-        c2[c] += p2[k][c];
-      }
-    }
-    double M[3][3] = {}, C[6] = {}, y1sq = 0.0;
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      c1[c] /= 3.0;
-      c2[c] /= 3.0;
-    }
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      const double y1[3] = {p1[k][0] - c1[0], p1[k][1] - c1[1], p1[k][2] - c1[2]};
-      const double y2[3] = {p2[k][0] - c2[0], p2[k][1] - c2[1], p2[k][2] - c2[2]};
-#pragma unroll
-      for (int a = 0; a < 3; ++a) {
-#pragma unroll
-        for (int b = 0; b < 3; ++b) M[a][b] += y2[a] * y1[b];
-      }
-      y1sq += y1[0] * y1[0] + y1[1] * y1[1] + y1[2] * y1[2];
-      C[0] += y2[0] * y2[0];
-      C[1] += y2[0] * y2[1];
-      C[2] += y2[0] * y2[2];
-      C[3] += y2[1] * y2[1];
-      C[4] += y2[1] * y2[2];
-      C[5] += y2[2] * y2[2];
-    }
-    S = horn(M, y1sq, C, c1, c2, fix_scale != 0);
-  }
+// Tile t staged by the whole block, between two barriers.
+__device__ int restage(const Matches& in, int t, Tile& g, int* wcount) {
   __syncthreads();
-  const int n = count_inliers(S, x1, x2, uv1, uv2, th1, th2, valid, cam, m);
-  if (threadIdx.x == 0) {
-    counts[h] = n;
-#pragma unroll
-    for (int k = 0; k < 9; ++k) params[NPARAM * h + k] = S.R[k];
-#pragma unroll
-    for (int k = 0; k < 3; ++k) params[NPARAM * h + 9 + k] = S.t[k];
-    params[NPARAM * h + 12] = S.s;
-  }
+  const int n = stage(in, t * TILE, min(in.m, (t + 1) * TILE), 0, g, wcount);
+  __syncthreads();
+  return n;
 }
 
-// The block's sums of `k` values from every thread's partial sums, in
-// thread 0's `out`: a pairwise tree over the threads, the same pairs every
-// run (a fixed order, so bit-equal runs).
-template <int k>
-__device__ void block_sum(double (&mine)[k], double (*part)[THREADS], double (&out)[k]) {
-#pragma unroll
-  for (int j = 0; j < k; ++j) part[j][threadIdx.x] = mine[j];
+// The inliers of S among the first n staged matches, this thread's share.
+__device__ __forceinline__ int count_staged(const Sim3f& S, const Tile& g, int n, Cam cam) {
+  const float si = inv_scale(S.s);
+  int c = 0;
+  for (int j = threadIdx.x; j < n; j += THREADS) c += inlier(S, si, g, j, cam);
+  return c;
+}
+
+// The block's sum of every thread's v, to every thread: a shuffle tree in
+// each warp, then the warps in order (a fixed order, so bit-equal runs).
+// `scratch` holds WARPS values; the trailing barrier frees it.
+__device__ int block_sum(int v, int* scratch) {
+  v = __reduce_add_sync(FULL, v);
+  if ((threadIdx.x & 31) == 0) scratch[threadIdx.x >> 5] = v;
   __syncthreads();
+  int s = scratch[0];
 #pragma unroll
-  for (int stride = THREADS / 2; stride > 0; stride /= 2) {
-    if (threadIdx.x < stride) {
+  for (int w = 1; w < WARPS; ++w) s += scratch[w];
+  __syncthreads();
+  return s;
+}
+
+// The same for K doubles: the warps' sums added in order by lane k of
+// warp 0 for value k. Threads from `reach` on summed nothing (their v is
+// +0.0), so a warp wholly past it skips its tree: the same sums bit for
+// bit, with fewer shuffles where few matches are staged.
+template <int K>
+__device__ void block_sum(double (&v)[K], double (*scratch)[16], double* total, int reach) {
+  if ((int)(threadIdx.x & ~31u) < reach) {
 #pragma unroll
-      for (int j = 0; j < k; ++j) part[j][threadIdx.x] += part[j][threadIdx.x + stride];
+    for (int k = 0; k < K; ++k) {
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) v[k] += __shfl_down_sync(FULL, v[k], off);
     }
-    __syncthreads();
   }
-  if (threadIdx.x == 0) {
+  if ((threadIdx.x & 31) == 0) {
 #pragma unroll
-    for (int j = 0; j < k; ++j) out[j] = part[j][0];
+    for (int k = 0; k < K; ++k) scratch[threadIdx.x >> 5][k] = v[k];
   }
   __syncthreads();
+  if (threadIdx.x < K) {
+    double s = scratch[0][threadIdx.x];
+#pragma unroll
+    for (int w = 1; w < WARPS; ++w) s += scratch[w][threadIdx.x];
+    total[threadIdx.x] = s;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < K; ++k) v[k] = total[k];
 }
 
 __global__ void __launch_bounds__(THREADS)
-refit_kernel(const float* __restrict__ x1, const float* __restrict__ x2, const float2* __restrict__ uv1,
-             const float2* __restrict__ uv2, const float* __restrict__ th1, const float* __restrict__ th2,
-             const bool* __restrict__ valid, int n_hyp, int m, Cam cam, int fix_scale, int min_inliers,
-             const int* __restrict__ counts, const float* __restrict__ params, float* __restrict__ R_out,
-             float* __restrict__ t_out, float* __restrict__ s_out, bool* __restrict__ inl_out,
-             int64_t* __restrict__ n_out, bool* __restrict__ ok_out, int* __restrict__ info) {
-  __shared__ Sim3f best, refit;
-  __shared__ double part[16][THREADS];
-  __shared__ double sums[16];
-  __shared__ int n_best_s;
-  if (threadIdx.x == 0) {
-    int b = 0;
-    for (int h = 1; h < n_hyp; ++h) {
-      if (counts[h] > counts[b]) b = h;  // the first maximum
-    }
-    for (int k = 0; k < 9; ++k) best.R[k] = params[NPARAM * b + k];
-    for (int k = 0; k < 3; ++k) best.t[k] = params[NPARAM * b + 9 + k];
-    best.s = params[NPARAM * b + 12];
-    info[0] = b;
+ransac_kernel(Matches in, const int64_t* __restrict__ sets, Cam cam, int fix_scale, int min_inliers,
+              int* __restrict__ counts, float* __restrict__ params, unsigned* __restrict__ ticket,
+              float* __restrict__ R_out, float* __restrict__ t_out, float* __restrict__ s_out,
+              bool* __restrict__ inl_out, int64_t* __restrict__ n_out, bool* __restrict__ ok_out,
+              int* __restrict__ info) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  Tile& g = *reinterpret_cast<Tile*>(smem);
+  __shared__ Sim3f S, refit;
+  __shared__ int wcount[WARPS], isum[WARPS], n_first;
+  __shared__ double dsum[WARPS][16], dtot[16];
+  __shared__ bool last;
+  const int h = blockIdx.x, m = in.m;
+  const int tiles = (m + TILE - 1) / TILE;
+
+  // 1. Horn on the minimal set beside the first tile's staging.
+  if (threadIdx.x < 32) {
+    if (threadIdx.x == 0) S = hypothesis(in, sets, h, fix_scale != 0);
+  } else {
+    const int n = stage(in, 0, min(m, TILE), 1, g, wcount);
+    if (threadIdx.x == 32) n_first = n;
   }
   __syncthreads();
 
-  // Pass 1: the best hypothesis's mask and the inliers' count and sums of
-  // x1, x2 (the count as a double: exact).
-  const float si = inv_scale(best.s);
-  double mine[16];
-  for (int j = 0; j < 7; ++j) mine[j] = 0.0;
-  for (int i = threadIdx.x; i < m; i += THREADS) {
-    const bool in = inlier(best, si, x1, x2, uv1, uv2, th1, th2, valid, cam, i);
-    inl_out[i] = in;
-    if (in) {
-      for (int c = 0; c < 3; ++c) {
-        mine[c] += x1[3 * i + c];
-        mine[3 + c] += x2[3 * i + c];
+  // 2. The count, the hypothesis's outputs and the ticket.
+  const Sim3f hs = S;
+  int staged = n_first;
+  int mine = count_staged(hs, g, staged, cam);
+  for (int t = 1; t < tiles; ++t) {
+    staged = restage(in, t, g, wcount);
+    mine += count_staged(hs, g, staged, cam);
+  }
+  const int n_hyp = block_sum(mine, isum);
+  if (threadIdx.x == 0) {
+    counts[h] = n_hyp;
+#pragma unroll
+    for (int k = 0; k < 9; ++k) params[NPARAM * h + k] = hs.R[k];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) params[NPARAM * h + 9 + k] = hs.t[k];
+    params[NPARAM * h + 12] = hs.s;
+    __threadfence();
+    last = atomicInc(ticket, gridDim.x - 1) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+
+  // 3. The first maximum of the counts, by warp 0: each lane over its
+  // hypotheses in index order, then shuffles; a tie goes to the lower index.
+  if (threadIdx.x < 32) {
+    __threadfence();  // the other blocks' counts and Sim3s, read from L2
+    int bc = -1, bi = 0;
+    for (int base = 0; base < (int)gridDim.x; base += 128) {
+      int c[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int k = base + 32 * u + threadIdx.x;
+        c[u] = k < (int)gridDim.x ? __ldcg(counts + k) : -1;
       }
-      mine[6] += 1.0;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        if (c[u] > bc) {
+          bc = c[u];
+          bi = base + 32 * u + threadIdx.x;
+        }
+      }
     }
-  }
-  {
-    double first[7], tot[7];
-    for (int j = 0; j < 7; ++j) first[j] = mine[j];
-    block_sum<7>(first, part, tot);
-    if (threadIdx.x == 0) {
-      n_best_s = (int)tot[6];
-      const double n = fmax(tot[6], 3.0);
-      for (int j = 0; j < 6; ++j) sums[j] = tot[j] / n;  // c1 (0-2), c2 (3-5)
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const int oc = __shfl_xor_sync(FULL, bc, off), oi = __shfl_xor_sync(FULL, bi, off);
+      if (oc > bc || (oc == bc && oi < bi)) {
+        bc = oc;
+        bi = oi;
+      }
     }
-    __syncthreads();
+    if (threadIdx.x < NPARAM) {
+      const float p = __ldcg(params + NPARAM * bi + threadIdx.x);
+      if (threadIdx.x < 9) S.R[threadIdx.x] = p;
+      else if (threadIdx.x < 12) S.t[threadIdx.x - 9] = p;
+      else S.s = p;
+    }
+    if (threadIdx.x == 0) info[0] = bi;
   }
+  __syncthreads();
+  const Sim3f best = S;
+  const float sb = inv_scale(best.s);
 
-  // Pass 2: the centred moments over the same inliers.
-  double c1[3] = {sums[0], sums[1], sums[2]}, c2[3] = {sums[3], sums[4], sums[5]};
-  for (int j = 0; j < 16; ++j) mine[j] = 0.0;
-  for (int i = threadIdx.x; i < m; i += THREADS) {
-    if (!inl_out[i]) continue;
-    const double y1[3] = {x1[3 * i] - c1[0], x1[3 * i + 1] - c1[1], x1[3 * i + 2] - c1[2]};
-    const double y2[3] = {x2[3 * i] - c2[0], x2[3 * i + 1] - c2[1], x2[3 * i + 2] - c2[2]};
-    for (int a = 0; a < 3; ++a) {
-      for (int b = 0; b < 3; ++b) mine[3 * a + b] += y2[a] * y1[b];
+  // Pass A: the best hypothesis's inliers, their count and sums of x1, x2
+  // (the count as a double: exact). Each pass runs over the staged
+  // matches; past one tile it stages the tiles again.
+  double a[7] = {0, 0, 0, 0, 0, 0, 0};
+  int reach = staged;  // threads from here on sum nothing
+  for (int t = 0; t < tiles; ++t) {
+    if (tiles > 1) {
+      staged = restage(in, t, g, wcount);
+      reach = t == 0 ? staged : max(reach, staged);
     }
-    mine[9] += y1[0] * y1[0] + y1[1] * y1[1] + y1[2] * y1[2];
-    mine[10] += y2[0] * y2[0];
-    mine[11] += y2[0] * y2[1];
-    mine[12] += y2[0] * y2[2];
-    mine[13] += y2[1] * y2[1];
-    mine[14] += y2[1] * y2[2];
-    mine[15] += y2[2] * y2[2];
+    for (int j = threadIdx.x; j < staged; j += THREADS) {
+      if (!inlier(best, sb, g, j, cam)) continue;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        a[c] += g.x1[c][j];
+        a[3 + c] += g.x2[c][j];
+      }
+      a[6] += 1.0;
+    }
   }
-  double tot[16];
-  block_sum<16>(mine, part, tot);
-  if (threadIdx.x == 0) {
-    double M[3][3], C[6];
-    for (int a = 0; a < 3; ++a) {
-      for (int b = 0; b < 3; ++b) M[a][b] = tot[3 * a + b];
+  block_sum<7>(a, dsum, dtot, reach);
+  const int n_best = (int)a[6];
+  const double nn = fmax(a[6], 3.0);
+  const double c1[3] = {a[0] / nn, a[1] / nn, a[2] / nn}, c2[3] = {a[3] / nn, a[4] / nn, a[5] / nn};
+
+  // Pass B: the centred moments over the same inliers, then Horn.
+  double b[16];
+#pragma unroll
+  for (int k = 0; k < 16; ++k) b[k] = 0.0;
+  for (int t = 0; t < tiles; ++t) {
+    if (tiles > 1) staged = restage(in, t, g, wcount);
+    for (int j = threadIdx.x; j < staged; j += THREADS) {
+      if (!inlier(best, sb, g, j, cam)) continue;
+      const double y1[3] = {g.x1[0][j] - c1[0], g.x1[1][j] - c1[1], g.x1[2][j] - c1[2]};
+      const double y2[3] = {g.x2[0][j] - c2[0], g.x2[1][j] - c2[1], g.x2[2][j] - c2[2]};
+#pragma unroll
+      for (int r = 0; r < 3; ++r) {
+#pragma unroll
+        for (int c = 0; c < 3; ++c) b[3 * r + c] += y2[r] * y1[c];
+      }
+      b[9] += y1[0] * y1[0] + y1[1] * y1[1] + y1[2] * y1[2];
+      b[10] += y2[0] * y2[0];
+      b[11] += y2[0] * y2[1];
+      b[12] += y2[0] * y2[2];
+      b[13] += y2[1] * y2[1];
+      b[14] += y2[1] * y2[2];
+      b[15] += y2[2] * y2[2];
     }
-    for (int j = 0; j < 6; ++j) C[j] = tot[10 + j];
-    refit = horn(M, tot[9], C, c1, c2, fix_scale != 0);
+  }
+  block_sum<16>(b, dsum, dtot, reach);
+  if (tiles == 1) {  // the mask's tile cleared while thread 0 solves
+    for (int i = threadIdx.x; i < m; i += THREADS) g.flag[i] = 0;
+  }
+  if (threadIdx.x == 0) {
+    const double M[3][3] = {{b[0], b[1], b[2]}, {b[3], b[4], b[5]}, {b[6], b[7], b[8]}};
+    const double C[6] = {b[10], b[11], b[12], b[13], b[14], b[15]};
+    refit = horn(M, b[9], C, c1, c2, fix_scale != 0);
   }
   __syncthreads();
 
-  // Pass 3: the refit's count; kept if it explains at least as many.
-  const int n_refit = count_inliers(refit, x1, x2, uv1, uv2, th1, th2, valid, cam, m);
-  const bool better = n_refit >= n_best_s;
-  const Sim3f& S = better ? refit : best;
-  if (better) {
-    const float sr = inv_scale(refit.s);
-    for (int i = threadIdx.x; i < m; i += THREADS) {
-      inl_out[i] = inlier(refit, sr, x1, x2, uv1, uv2, th1, th2, valid, cam, i);
+  // Pass C: the refit's count; kept if it explains at least as many.
+  const Sim3f rf = refit;
+  int c = 0;
+  for (int t = 0; t < tiles; ++t) {
+    if (tiles > 1) staged = restage(in, t, g, wcount);
+    c += count_staged(rf, g, staged, cam);
+  }
+  const int n_refit = block_sum(c, isum);
+  const bool better = n_refit >= n_best;
+  const Sim3f F = better ? rf : best;
+  const float sf = inv_scale(F.s);
+
+  // Pass D: the mask, each slot written once.
+  for (int t = 0; t < tiles; ++t) {
+    const int lo = t * TILE, n_slots = min(m, lo + TILE) - lo;
+    if (tiles > 1) {
+      staged = restage(in, t, g, wcount);
+      for (int i = threadIdx.x; i < n_slots; i += THREADS) g.flag[i] = 0;
+      __syncthreads();
     }
+    for (int j = threadIdx.x; j < staged; j += THREADS) g.flag[g.slot[j] - lo] = inlier(F, sf, g, j, cam);
+    __syncthreads();
+    for (int i = threadIdx.x; i < n_slots; i += THREADS) inl_out[lo + i] = g.flag[i] != 0;
   }
   if (threadIdx.x == 0) {
-    for (int k = 0; k < 9; ++k) R_out[k] = S.R[k];
-    for (int k = 0; k < 3; ++k) t_out[k] = S.t[k];
-    s_out[0] = S.s;
-    const int n = better ? n_refit : n_best_s;
+#pragma unroll
+    for (int k = 0; k < 9; ++k) R_out[k] = F.R[k];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) t_out[k] = F.t[k];
+    s_out[0] = F.s;
+    const int n = better ? n_refit : n_best;
     n_out[0] = n;
     ok_out[0] = n >= min_inliers;
     info[1] = better;
@@ -363,36 +545,40 @@ refit_kernel(const float* __restrict__ x1, const float* __restrict__ x2, const f
 // x1, x2: (m,3) float32; uv1, uv2: (m,2) float32; th1, th2: (m,) float32;
 // valid: (m,) bool; sets: (n_hyp,3) int64 indices into the matches;
 // fx, fy, cx, cy the pinhole intrinsics; counts: (n_hyp,) int32 and
-// params: (n_hyp,13) float32 scratch. Writes R (3,3), t (3,), s () float32,
-// inliers (m,) bool, n_inliers () int64, ok () bool and info (2,) int32
-// (the best hypothesis, whether the refit was kept); all on the card.
-// Returns the first launch error as a cudaError_t, 0 if none.
+// params: (n_hyp,13) float32 scratch (each hypothesis's count and R, t,
+// s); ticket: one uint32 on the card, 0 before the first call (each call
+// leaves it 0). Writes R (3,3), t (3,), s () float32, inliers (m,) bool,
+// n_inliers () int64, ok () bool and info (2,) int32 (the best hypothesis,
+// whether the refit was kept); all on the card. One launch. Returns the
+// first error as a cudaError_t, 0 if none.
 extern "C" int sim3_ransac(const void* x1, const void* x2, const void* uv1, const void* uv2, const void* th1,
                            const void* th2, const void* valid, const void* sets, int n_hyp, int m, float fx,
                            float fy, float cx, float cy, int fix_scale, int min_inliers, void* counts,
                            void* params, void* R, void* t, void* s, void* inliers, void* n_inliers, void* ok,
-                           void* info, void* stream) {
+                           void* info, void* ticket, void* stream) {
   if (n_hyp < 1 || m < 1 || !x1 || !x2 || !uv1 || !uv2 || !th1 || !th2 || !valid || !sets || !counts ||
-      !params || !R || !t || !s || !inliers || !n_inliers || !ok || !info)
+      !params || !R || !t || !s || !inliers || !n_inliers || !ok || !info || !ticket)
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Cam cam{fx, fy, cx, cy};
-  const float* X1 = static_cast<const float*>(x1);
-  const float* X2 = static_cast<const float*>(x2);
-  const float2* U1 = static_cast<const float2*>(uv1);
-  const float2* U2 = static_cast<const float2*>(uv2);
-  const float* T1 = static_cast<const float*>(th1);
-  const float* T2 = static_cast<const float*>(th2);
-  const bool* V = static_cast<const bool*>(valid);
-  hypotheses_kernel<<<n_hyp, THREADS, 0, st>>>(X1, X2, U1, U2, T1, T2, V, static_cast<const int64_t*>(sets), m,
-                                               cam, fix_scale, static_cast<int*>(counts),
-                                               static_cast<float*>(params));
-  cudaError_t err = cudaGetLastError();
+  // The tile is more shared memory than a block gets by default; the
+  // attribute is set once for each device (not a stream operation, so a
+  // call under graph capture may set it too).
+  static bool ready[64];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  refit_kernel<<<1, THREADS, 0, st>>>(X1, X2, U1, U2, T1, T2, V, n_hyp, m, cam, fix_scale, min_inliers,
-                                      static_cast<const int*>(counts), static_cast<const float*>(params),
-                                      static_cast<float*>(R), static_cast<float*>(t), static_cast<float*>(s),
-                                      static_cast<bool*>(inliers), static_cast<int64_t*>(n_inliers),
-                                      static_cast<bool*>(ok), static_cast<int*>(info));
+  if (dev < 0 || dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!ready[dev]) {
+    err = cudaFuncSetAttribute(ransac_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sizeof(Tile));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ready[dev] = true;
+  }
+  const Matches in{static_cast<const float*>(x1),  static_cast<const float*>(x2),  static_cast<const float2*>(uv1),
+                   static_cast<const float2*>(uv2), static_cast<const float*>(th1), static_cast<const float*>(th2),
+                   static_cast<const bool*>(valid), m};
+  ransac_kernel<<<n_hyp, THREADS, sizeof(Tile), static_cast<cudaStream_t>(stream)>>>(
+      in, static_cast<const int64_t*>(sets), Cam{fx, fy, cx, cy}, fix_scale, min_inliers, static_cast<int*>(counts),
+      static_cast<float*>(params), static_cast<unsigned*>(ticket), static_cast<float*>(R), static_cast<float*>(t),
+      static_cast<float*>(s), static_cast<bool*>(inliers), static_cast<int64_t*>(n_inliers), static_cast<bool*>(ok),
+      static_cast<int*>(info));
   return static_cast<int>(cudaGetLastError());
 }

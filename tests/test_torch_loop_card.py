@@ -6,18 +6,24 @@ the same inputs, and the stage's four programs replayed against eager.
 Each case (marked `cuda`, skipped without a card) is a RANSAC problem of M
 matches between two camera-frame point sets under a Sim3, a share of them
 outliers, observed by a KITTI camera with the reference's per-octave
-thresholds 9.210 sigma^2, and 128 minimal sets from the loop closer's own
-draw. Gates, each the same as `chip_smoke.py`'s on the loop path's real
-inputs: `ok` equal; n_inliers within 2; the inlier masks part on at most 2
-matches (the kernel solves Horn in double, the plain version in float32,
-so a match within rounding of its threshold may fall the other way); R, t
-and s within 1e-4 of float64 Horn on the inliers the kernel refitted on
+thresholds 9.210 sigma^2 (`sim3_kernel.synthetic_problem`), and 128 minimal
+sets from the loop closer's own draw. Gates, each the same as
+`chip_smoke.py`'s on the loop path's real inputs: `ok` equal; n_inliers
+within 2; the inlier masks part on at most 2 matches (the kernel solves
+Horn in double, the plain version in float32, so a match within rounding
+of its threshold may fall the other way); R, t and s within 1e-4 of
+float64 Horn on the inliers the kernel refitted on
 (`sim3_kernel.reference64`); two launches torch.equal. Cases: M = 1000
 (the RGB-D and CLI paths' keyframes) and 2000 (the loop path's), with and
-without a fixed scale; a collinear minimal set; all matches invalid;
-fewer than 3 valid; two groups of matches under two Sim3s that tie on
-their count, where the first hypothesis of the tie must win, in either
-order. Then `sim3_match`, `sim3_ransac`, `sim3_refine` and `loop_gate` on the ring of
+without a fixed scale; every pair valid at M = 2000 and at 4500 (past one
+tile of the kernel's shared-memory staging); 1 and 131 hypotheses; a
+collinear minimal set; all matches invalid; fewer than 3 valid; two groups
+of matches under two Sim3s that tie on their count, where the first
+hypothesis of the tie must win, in either order, and ties between blocks
+of the launch at other places, where the lowest index must win; three
+eager launches and a captured CUDA graph replayed three times, all
+torch.equal, the kernel's ticket 0 after each; one device launch a call
+(torch.profiler). Then `sim3_match`, `sim3_ransac`, `sim3_refine` and `loop_gate` on the ring of
 tests/torch_ring.py (built on the card with the port's own code): each
 captured on one candidate and replayed on it and on another keyframe
 pair, torch.equal to eager (`sim3_refine` captures at a key's second
@@ -35,61 +41,18 @@ import torch
 from orb_slam_cuda_tpu_torch.engine import loop_closing as tlc
 from orb_slam_cuda_tpu_torch.engine import programs
 from orb_slam_cuda_tpu_torch.geometry import sim3
-from orb_slam_cuda_tpu_torch.geometry.camera import Camera
 from orb_slam_cuda_tpu_torch.ops import sim3_kernel
 from orb_slam_cuda_tpu_torch.slam_map.state import slot_index
 from orb_slam_cuda_tpu_torch.solvers import initializer, sim3_solver
 
 torch.set_num_threads(2)
-KITTI = dict(fx=718.856, fy=718.856, cx=607.1928, cy=185.2157, width=1241, height=376)
 N_PARTED, N_DIFF, TOL64 = 2, 2, 1e-4
-SIG2 = 1.2 ** (2 * np.arange(8))  # level_sigma2 of 8 levels at scale 1.2
 
 
 def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the Sim3 RANSAC kernel and CUDA graphs have no CPU mode")
     return torch.device("cuda")
-
-
-def _project(cam, X):
-    return np.stack([cam.fx * X[:, 0] / X[:, 2] + cam.cx, cam.fy * X[:, 1] / X[:, 2] + cam.cy], -1)
-
-
-def _problem(dev, m, seed, fix_scale=False, outliers=0.3, n_valid=None, groups=None):
-    """A RANSAC problem's kernel arguments on `dev`: x1, x2 (M,3), uv1, uv2
-    (M,2), valid (M,), th1, th2 (M,). Points 4-30 m in front of camera 2,
-    x1 = S x2 under a Sim3 S (scale 1 with `fix_scale`), 0.5 px of noise,
-    a share `outliers` of x1 moved 0.5-3 m. `n_valid` keeps that many
-    matches valid. `groups` = (a, b): matches 0..a-1 follow S and a..a+b-1
-    a second Sim3, the rest are outliers."""
-    rng = np.random.default_rng(seed)
-    cam = Camera.create(**KITTI)
-    x2 = np.stack([rng.uniform(-8, 8, m), rng.uniform(-2, 2, m), rng.uniform(4, 30, m)], -1)
-    xi = np.array([0.4, -0.1, 0.6, 0.03, -0.2, 0.01, 0.0 if fix_scale else 0.2], np.float32)
-    S = [a.double().numpy() for a in sim3.exp(torch.as_tensor(xi))]
-    x1 = S[2] * x2 @ S[0].T + S[1]
-    out = rng.random(m) < outliers
-    if groups is not None:
-        xi2 = np.array([-0.5, 0.2, 0.3, 0.1, 0.25, -0.05, 0.0 if fix_scale else -0.1], np.float32)
-        S2 = [a.double().numpy() for a in sim3.exp(torch.as_tensor(xi2))]
-        a, b = groups
-        x1[a:a + b] = S2[2] * x2[a:a + b] @ S2[0].T + S2[1]
-        out = np.arange(m) >= a + b
-    x1[out] += rng.uniform(0.5, 3.0, (int(out.sum()), 3)) * rng.choice([-1, 1], (int(out.sum()), 3))
-    uv1 = _project(cam, x1) + rng.normal(0, 0.5, (m, 2))
-    uv2 = _project(cam, x2) + rng.normal(0, 0.5, (m, 2))
-    valid = np.ones(m, bool) if n_valid is None else np.arange(m) < n_valid
-    valid &= (x1[:, 2] > 0.5)
-    oct1, oct2 = rng.integers(0, 4, m), rng.integers(0, 4, m)
-    f32 = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.float32), device=dev)  # noqa: E731
-    return cam, dict(x1=f32(x1), x2=f32(x2), uv1=f32(uv1), uv2=f32(uv2), valid=torch.as_tensor(valid, device=dev),
-                     th1=f32(9.210 * SIG2[oct1]), th2=f32(9.210 * SIG2[oct2]))
-
-
-def _sets(p, seed):
-    keys = initializer.default_keys("sim3", seed, p["x1"].shape[0]).to(p["x1"].device)
-    return initializer.sets_from_keys(keys, p["valid"], 3)
 
 
 def _run_both(cam, p, sets, fix_scale, min_inliers=20):
@@ -126,8 +89,8 @@ def _check(cam, p, sets, fix_scale, out, plain, rotation=True):
 @pytest.mark.parametrize("fix_scale", [False, True], ids=["free_scale", "fix_scale"])
 def test_sim3_kernel_against_plain(m, fix_scale):
     dev = _card()
-    cam, p = _problem(dev, m, seed=m, fix_scale=fix_scale)
-    sets = _sets(p, 131 * 15)
+    cam, p = sim3_kernel.synthetic_problem(dev, m, seed=m, fix_scale=fix_scale)
+    sets = sim3_kernel.synthetic_sets(p, 131 * 15)
     out, plain = _run_both(cam, p, sets, fix_scale)
     assert bool(out[5]) and int(out[4]) >= 0.6 * m
     _check(cam, p, sets, fix_scale, out, plain)
@@ -138,12 +101,12 @@ def test_sim3_kernel_collinear_minimal_set():
     """Hypothesis 0 is three collinear matches, whose rotation about the
     line is free: the kernel's Jacobi and `eigh` may pick other ones."""
     dev = _card()
-    cam, p = _problem(dev, 2000, seed=3)
+    cam, p = sim3_kernel.synthetic_problem(dev, 2000, seed=3)
     line = torch.tensor([[0.0, 0.0, 10.0], [1.0, 0.5, 12.0], [2.0, 1.0, 14.0]], device=dev)
     p["x2"][:3] = line
     S = sim3.exp(torch.tensor([0.4, -0.1, 0.6, 0.03, -0.2, 0.01, 0.2], device=dev))
     p["x1"][:3] = sim3.transform(S, line)
-    sets = _sets(p, 7)
+    sets = sim3_kernel.synthetic_sets(p, 7)
     sets[0] = torch.tensor([0, 1, 2], device=dev)
     out, plain = _run_both(cam, p, sets, False)
     _check(cam, p, sets, False, out, plain)
@@ -153,8 +116,8 @@ def test_sim3_kernel_collinear_minimal_set():
 @pytest.mark.parametrize("n_valid", [0, 2], ids=["all_invalid", "two_valid"])
 def test_sim3_kernel_too_few_valid(n_valid):
     dev = _card()
-    cam, p = _problem(dev, 1000, seed=4, n_valid=n_valid)
-    sets = _sets(p, 9)
+    cam, p = sim3_kernel.synthetic_problem(dev, 1000, seed=4, n_valid=n_valid)
+    sets = sim3_kernel.synthetic_sets(p, 9)
     out, plain = _run_both(cam, p, sets, False)
     assert not bool(out[5]) and int(out[4]) <= n_valid
     _check(cam, p, sets, False, out, plain, rotation=False)
@@ -167,7 +130,7 @@ def test_sim3_kernel_tie_takes_the_first(first):
     """Two disjoint groups of 60 matches under two Sim3s: hypotheses from
     either group count 60. The first hypothesis wins, as `argmax` picks."""
     dev = _card()
-    cam, p = _problem(dev, 1000, seed=5, groups=(60, 60))
+    cam, p = sim3_kernel.synthetic_problem(dev, 1000, seed=5, groups=(60, 60))
     a = torch.arange(0, 60, device=dev)
     b = torch.arange(60, 120, device=dev)
     g = torch.Generator(device="cpu").manual_seed(11)
@@ -181,6 +144,114 @@ def test_sim3_kernel_tie_takes_the_first(first):
     group = order[0]
     assert bool(out[3][group].all()) and int(out[4]) == 60
     _check(cam, p, sets, False, out, plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [2000, 4500])
+def test_sim3_kernel_every_pair_valid(m):
+    """Every pair valid: the full-width call at the loop path's M, and an M
+    past one tile of the kernel's staging (2,048 slots), whose passes stage
+    the tiles again."""
+    dev = _card()
+    cam, p = sim3_kernel.synthetic_problem(dev, m, seed=m + 1)
+    assert bool(p["valid"].all())
+    sets = sim3_kernel.synthetic_sets(p, 131 * 15)
+    out, plain = _run_both(cam, p, sets, False)
+    assert bool(out[5]) and int(out[4]) >= 0.6 * m
+    _check(cam, p, sets, False, out, plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nh", [1, 131])
+def test_sim3_kernel_hypothesis_counts(nh):
+    """One hypothesis (the launch's one block is the last) and 131 (past
+    the choice's 128-wide step). The one hypothesis's problem has no
+    outliers: a set with one would leave its refit a point or two, whose
+    rotation is not unique (as the collinear case's), and the check
+    against float64 Horn would compare two arbitrary rotations."""
+    dev = _card()
+    cam, p = sim3_kernel.synthetic_problem(dev, 1000, seed=nh, outliers=0.0 if nh == 1 else 0.3)
+    sets = sim3_kernel.synthetic_sets(p, 13)
+    sets = sets[:1].contiguous() if nh == 1 else torch.cat([sets, sets[:3]]).contiguous()
+    out, plain = _run_both(cam, p, sets, False)
+    assert out[7].shape == (nh,)
+    _check(cam, p, sets, False, out, plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("winners", [(37, 70, 101, 127), (127, 130), (64, 96, 128)])
+def test_sim3_kernel_tie_across_blocks(winners):
+    """Hypotheses from a group of 60 matches tie at the maximum, the rest
+    come from a group of 40: the lowest of `winners` must win, wherever
+    the tied blocks finish and whichever lanes of the choice hold them."""
+    dev = _card()
+    cam, p = sim3_kernel.synthetic_problem(dev, 1000, seed=6, groups=(60, 40))
+    a, b = torch.arange(0, 60, device=dev), torch.arange(60, 100, device=dev)
+    g = torch.Generator(device="cpu").manual_seed(12)
+    nh = max(winners) + 1 if max(winners) >= 128 else 128
+    sets = torch.stack([(a if h in winners else b)[torch.randperm(len(a if h in winners else b), generator=g)[:3]
+                                                   .to(dev)] for h in range(nh)])
+    out, plain = _run_both(cam, p, sets, False)
+    counts, info = out[7], out[6]
+    assert all(int(counts[w]) == int(counts.max()) == 60 for w in winners), counts[list(winners)]
+    assert int((counts == 60).sum()) == len(winners)
+    assert int(info[0]) == min(winners)
+    _check(cam, p, sets, False, out, plain)
+
+
+@pytest.mark.cuda
+def test_sim3_kernel_graph_replays_equal_eager():
+    """Three eager launches, then one launch captured in a CUDA graph and
+    replayed three times: all torch.equal, and the ticket (which tells the
+    last block) back at 0 after each."""
+    dev = _card()
+    cam, p = sim3_kernel.synthetic_problem(dev, 2000, seed=8)
+    sets = sim3_kernel.synthetic_sets(p, 21)
+    args = (p["x1"], p["x2"], p["uv1"], p["uv2"], p["valid"], sets, p["th1"], p["th2"], cam, False, 20)
+    eager = []
+    for _ in range(3):
+        eager.append(sim3_kernel.launch(*args))
+        torch.cuda.synchronize()
+        assert int(sim3_kernel._tickets[dev.index or 0]) == 0
+    assert all(torch.equal(a, b) for e in eager[1:] for a, b in zip(eager[0], e))
+    graph = torch.cuda.CUDAGraph()
+    recorded = sim3_kernel.recorded
+    with torch.cuda.graph(graph):
+        captured = sim3_kernel.launch(*args)
+    assert sim3_kernel.recorded == recorded + 1
+    for _ in range(3):
+        for t in captured:
+            t.fill_(0)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert int(sim3_kernel._tickets[dev.index or 0]) == 0
+        assert all(torch.equal(a, b) for a, b in zip(eager[0], captured)), "a replay differs from eager"
+
+
+@pytest.mark.cuda
+def test_sim3_kernel_is_one_device_launch():
+    """torch.profiler over one call between two one-element fills (a
+    profile of the lone kernel can record no device event at all, as one
+    did in chip_smoke.py's process): one device event between them, the
+    kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = _card()
+    cam, p = sim3_kernel.synthetic_problem(dev, 2000, seed=9)
+    sets = sim3_kernel.synthetic_sets(p, 22)
+    args = (p["x1"], p["x2"], p["uv1"], p["uv2"], p["valid"], sets, p["th1"], p["th2"], cam, False, 20)
+    sim3_kernel.launch(*args)  # builds and loads the kernel, and makes the ticket, outside the profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.ones(1, device=dev)
+        sim3_kernel.launch(*args)
+        torch.ones(1, device=dev)
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA), key=lambda e: e.time_range.start)
+    names = [e.name for e in events]
+    assert len(names) == 3 and "FillFunctor" in names[0] and "FillFunctor" in names[2], names
+    assert "ransac_kernel" in names[1], names
 
 
 def _flat(out):

@@ -141,6 +141,22 @@ def test_sim3_draw_from_keys(m, n_valid):
         assert valid[want].sum() == 128 * n_valid
 
 
+def test_sim3_split_stamps_fit_the_kernel_source():
+    """tests/torch_sim3_split.py, which times the Sim3 kernel's phases on
+    the card from a stamped copy of its source, finds every line it stamps
+    in this tree's csrc/sim3_ransac.cu exactly once."""
+    import torch_sim3_split as split
+
+    with open(sim3_kernel.SOURCE) as f:
+        text = f.read()
+    design = split._design(text)
+    assert design == "one_launch"
+    anchors = split.DESIGNS[design]["anchors"]
+    stamped = split.instrument(text, anchors)
+    inserted = sum(bool(before) + bool(after) for _, before, after in anchors)
+    assert stamped.count("split_stamp(") == inserted + 1  # and the stamp's definition
+
+
 def _pnp_problem(rng, m=200, n_out=80):
     X = np.stack([rng.uniform(-3, 3, m), rng.uniform(-2, 2, m), rng.uniform(4, 10, m)], -1)
     X = X.astype(np.float32)
