@@ -4,10 +4,10 @@
 Phases, each printing its own lines:
   1. device check: a CUDA device is required; prints the card's name and
      power limit as nvidia-smi reports them;
-  2. build: compiles the three hand-written kernel sources from csrc/ with
+  2. build: compiles the four hand-written kernel sources from csrc/ with
      nvcc, one process each, started together (fast_corners.cu,
-     triangulate_dlt.cu and sim3_ransac.cu; the last two include
-     jacobi4.cuh);
+     triangulate_dlt.cu, sim3_ransac.cu and segsum.cu; the second and
+     third include jacobi4.cuh);
   3. kernel against plain: both entry points of the FAST kernel at the 8
      pyramid shapes of a rendered 1241x376 frame, at the 8 of a rendered
      640x480 frame and on uniform noise,
@@ -54,7 +54,17 @@ Phases, each printing its own lines:
      edge, each run twice under programs.eager(), then as a program (the
      capturing call and two replays of its CUDA graph): all torch.equal;
      the times of each call show what a capture costs (the System runs
-     the essential-graph solve eagerly: a path closes one or two loops);
+     the essential-graph solve eagerly: a path closes one or two loops).
+     Then the segment-sum kernel (csrc/segsum.cu): both solves again with
+     their float sums on torch.segment_reduce over the unmasked index (the
+     padded slots' zero addends clamped onto segment 0, as the solvers
+     summed before the kernel): torch.equal, bit for bit, to the kernel's;
+     and the kernel on the local BA's K = 36 (Hcc) and K = 9 (Hpp) calls,
+     as the solve makes them: torch.equal to its plain version and to
+     segment_reduce on the unmasked index, its device time warm and cold
+     and as called, the bound by bytes, the plain version's time and the
+     library call's (segment_reduce on the unmasked index, and with the
+     padding spread over trash segments of at most 32 addends);
   5c. programs: on the card every path runs its per-frame stages as
      captured CUDA graphs (engine/programs.py). The orbit at lag 0 (all
      108 frames), the first 30 stereo pairs of phase 7's circuit and the
@@ -98,7 +108,8 @@ Phases, each printing its own lines:
      the bound (Horn's Jacobi sweeps counted on the call's inputs) on both
      calls, and the plain version's time on the real one. Its gate of one
      device launch a call (torch.profiler, on the full-width call) runs in
-     phase 3, before the vocabulary phase;
+     phase 3, before the vocabulary phase, with the segment-sum kernel's
+     (one device launch a call at the local BA's shape);
   6b. parallel: the distributed back end on the loop path's final map.
      (a) its global-BA problem (as the loop closer gathers it) solved by
      bundle_adjust and by distributed_bundle_adjust on a 1-rank NCCL
@@ -107,7 +118,10 @@ Phases, each printing its own lines:
      card over gloo: the ranks torch.equal, each within (a)'s tolerance;
      (c) one cluster_block_ba round on the map on the 1-rank group, run
      twice: torch.equal, and the global problem's error no higher after
-     it than before. Prints each solve's time;
+     it than before. Prints each solve's time. (d) the segment-sum kernel
+     on the global-BA problem as in 5b: a 2-iteration solve through the
+     kernel torch.equal to one on the unmasked index and segment_reduce,
+     and the K = 36 and K = 9 calls timed;
   7. stereo path, in a process of its own started after 5b and run beside
      6, 6b, 8 and 9 (its log is printed when it ends): the first 300 frames (1.15 laps; the first loop closes
      by frame 283) of the same scene and circuit as a rectified pair
@@ -153,8 +167,11 @@ extracted image), the DLT kernel's two entries with their launches
 summed over all paths: `triangulate_dlt` (the initializer's) and
 `triangulate_gated` (one a triangulation neighbour of every keyframe the
 mapper took; every path whose mapper dispatched a keyframe must have
-launched it), and `sim3_ransac` (one a loop candidate verified, on the
-loop and stereo paths). The line
+launched it), `sim3_ransac` (one a loop candidate verified, on the
+loop and stereo paths) and `segsum` (every float segment sum of the
+bundle adjustments, the essential graph, the BoW rows and the map's
+statistics; every path whose mapper dispatched a keyframe must have
+launched it). The line
 before that holds the same numbers for fast_score_pair, the entry point
 the paths do not call. The last line is the device JSON. Any failure
 raises and exits non-zero without them. Every path prints its programs'
@@ -218,6 +235,12 @@ BYTES_PER_PIXEL = {"fast_score_pair": 12, "fast_corners_pyramid": 8}
 KERNEL_SOURCE = "orb_slam_cuda_tpu_torch/csrc/fast_corners.cu"
 DLT_SOURCE = "orb_slam_cuda_tpu_torch/csrc/triangulate_dlt.cu"
 SIM3_SOURCE = "orb_slam_cuda_tpu_torch/csrc/sim3_ransac.cu"
+SEGSUM_SOURCE = "orb_slam_cuda_tpu_torch/csrc/segsum.cu"
+# The least bytes of a segment sum: each valid addend's K floats and its
+# int64 place in the sort order read once, the (n+1) int64 offsets read
+# and the (n, K) sums written once; its operations are one float add an
+# addend.
+SEGSUM_TRASH = 32  # the library call's padding spread over segments of at most this many addends
 # The least work of the function a point, whatever the kernel does (its
 # double arithmetic is its own choice): A (16 products, 16 differences),
 # the 10 entries of the symmetric A^T A (4 products and 3 sums each), the
@@ -419,43 +442,46 @@ def phase_device():
 
 
 def phase_build():
-    """The three kernels' nvcc builds, started together."""
+    """The four kernels' nvcc builds, started together."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from orb_slam_cuda_tpu_torch.ops import dlt_kernel, fast_kernel, sim3_kernel
+    from orb_slam_cuda_tpu_torch.ops import dlt_kernel, fast_kernel, segsum, sim3_kernel
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
-        builds = [pool.submit(k.build) for k in (fast_kernel, dlt_kernel, sim3_kernel)]
+    with ThreadPoolExecutor(4) as pool:
+        builds = [pool.submit(k.build) for k in (fast_kernel, dlt_kernel, sim3_kernel, segsum)]
         results = [b.result() for b in builds]
-    for source, (path, seconds) in zip((KERNEL_SOURCE, DLT_SOURCE, SIM3_SOURCE), results):
+    for source, (path, seconds) in zip((KERNEL_SOURCE, DLT_SOURCE, SIM3_SOURCE, SEGSUM_SOURCE), results):
         log(f"build: {source} -> {path} in {seconds:.2f} s")
-    log(f"build: all three in {time.perf_counter() - t0:.2f} s")
+    log(f"build: all four in {time.perf_counter() - t0:.2f} s")
 
 
 def reset_launches():
     """Every kernel's launch count to 0, just before a path is driven."""
-    from orb_slam_cuda_tpu_torch.ops import dlt_kernel, fast_kernel, sim3_kernel
+    from orb_slam_cuda_tpu_torch.ops import dlt_kernel, fast_kernel, segsum, sim3_kernel
 
     fast_kernel.launches = 0
     dlt_kernel.launches = 0
     dlt_kernel.gated.launches = 0
     sim3_kernel.launches = 0
+    segsum.launches = 0
 
 
-# The DLT and Sim3 kernels' launches of each path's run, read just after it
-# is driven: {"dlt": the initializer's entry, "gated": the mapper's, "sim3":
-# the loop closer's RANSAC}.
+# The DLT, Sim3 and segment-sum kernels' launches of each path's run, read
+# just after it is driven: {"dlt": the initializer's entry, "gated": the
+# mapper's, "sim3": the loop closer's RANSAC, "segsum": the float segment
+# sums}.
 PATH_LAUNCHES = {}
+PATH_KERNELS = ("dlt", "gated", "sim3", "segsum")
 
 
 def note_launches(name: str) -> dict:
-    """Record the DLT entries' and the Sim3 kernel's launches of path `name`
-    since reset_launches()."""
-    from orb_slam_cuda_tpu_torch.ops import dlt_kernel, sim3_kernel
+    """Record the DLT entries', the Sim3 kernel's and the segment-sum
+    kernel's launches of path `name` since reset_launches()."""
+    from orb_slam_cuda_tpu_torch.ops import dlt_kernel, segsum, sim3_kernel
 
     PATH_LAUNCHES[name] = n = {"dlt": dlt_kernel.launches, "gated": dlt_kernel.gated.launches,
-                               "sim3": sim3_kernel.launches}
+                               "sim3": sim3_kernel.launches, "segsum": segsum.launches}
     return n
 
 
@@ -464,17 +490,19 @@ def mapping_dispatches(slam) -> int:
 
 
 def kernel_gates(name: str, slam) -> dict:
-    """Record the path's DLT and Sim3 launches, print its Sim3 stage and
-    gate them: on the card a path whose mapper dispatched a keyframe
-    launched the gated DLT entry, and the Sim3 kernel launched once a
+    """Record the path's DLT, Sim3 and segment-sum launches, print its Sim3
+    stage and gate them: on the card a path whose mapper dispatched a
+    keyframe launched the gated DLT entry and the segment-sum kernel (its
+    local BA's sums), and the Sim3 kernel launched once a
     candidate the loop closer verified, inside the replays of `sim3_ransac`
     wherever it verified two or more; `sim3_refine` not captured where it
     ran once and replayed where it ran three times or more."""
     n, dispatches = note_launches(name), mapping_dispatches(slam)
-    log(f"{name}: dlt and sim3 launches {n} ({dispatches} keyframes dispatched to the mapper)")
+    log(f"{name}: dlt, sim3 and segsum launches {n} ({dispatches} keyframes dispatched to the mapper)")
     gates = {}
     if slam.device.type == "cuda" and dispatches:
         gates[f"gated dlt launches > 0 ({dispatches} keyframes dispatched)"] = n["gated"] > 0
+        gates[f"segsum launches > 0 ({dispatches} keyframes dispatched)"] = n["segsum"] > 0
     lc = slam.loop_closer
     if lc is None:
         return gates
@@ -1157,6 +1185,7 @@ def phase_main_path(cam, poses, frames, device=None, vocab=None):
         f"fast launches == {want_launches}": launches == want_launches,
         "dlt launched (the initializer triangulates)": dlt["dlt"] > 0 or not on_gpu,
         f"gated dlt launched ({dispatches} keyframes dispatched)": dlt["gated"] > 0 or not on_gpu or dispatches == 0,
+        f"segsum launched ({dispatches} keyframes dispatched)": dlt["segsum"] > 0 or not on_gpu or dispatches == 0,
         f"map tensors on {slam.device} (off: {off_device})": not off_device,
         f"ATE <= {ATE_GATE}": ate <= ATE_GATE,
         "last pose finite": pose is not None and bool(np.isfinite(pose).all()),
@@ -1195,7 +1224,7 @@ def graphed_against_eager(name, make, track, frames, dt, want_launches, profiled
     from torch.profiler import ProfilerActivity, profile
 
     from orb_slam_cuda_tpu_torch.engine import programs
-    from orb_slam_cuda_tpu_torch.ops import dlt_kernel, fast_kernel
+    from orb_slam_cuda_tpu_torch.ops import dlt_kernel, fast_kernel, segsum
 
     runs = {}
     timed = len(frames) - profiled
@@ -1230,12 +1259,13 @@ def graphed_against_eager(name, make, track, frames, dt, want_launches, profiled
             f"{slam.stats.n_keyframes}; frames 0-{timed - 1}: host {ms.mean():.2f} ms a frame "
             f"({1e3 / ms.mean():.2f} fps), p50 {p50:.2f}, p99 {p99:.2f} ms{profiled_line}; "
             f"fast launches {fast_kernel.launches}, dlt launches {dlt_kernel.launches}, gated dlt launches "
-            f"{dlt_kernel.gated.launches}")
+            f"{dlt_kernel.gated.launches}, segsum launches {segsum.launches}")
         calls = program_summary(f"programs, {name}, {mode},", slam)
         stats = slam.program_stats()
         keyframe_programs = {k: v for k, v in stats.items() if k in KEYFRAME_PROGRAMS}
         runs[mode] = dict(vecs=vecs, traj=traj, launches=fast_kernel.launches, calls=calls,
-                          dlt=(dlt_kernel.launches, dlt_kernel.gated.launches), dispatches=mapping_dispatches(slam),
+                          dlt=(dlt_kernel.launches, dlt_kernel.gated.launches), segsum=segsum.launches,
+                          dispatches=mapping_dispatches(slam),
                           policy_keyframes=slam.stats.n_keyframes - (1 if slam.cfg.sensor.value else 2),
                           kf_calls=sum(v["captures"] + v["replays"] for v in keyframe_programs.values()),
                           kf_replays=sum(v["replays"] for v in keyframe_programs.values()),
@@ -1256,6 +1286,8 @@ def graphed_against_eager(name, make, track, frames, dt, want_launches, profiled
     }
     if g["policy_keyframes"] > 0:  # the mapper triangulated
         gates["gated dlt launched"] = g["dlt"][1] > 0
+    if g["dispatches"] > 0:  # the mapper's local BA summed
+        gates["segsum launched in each run"] = e["segsum"] > 0 and g["segsum"] > 0
     if g["policy_keyframes"] > 1:  # the keyframe programs were called again with a captured key
         gates[f"graphed: keyframe programs replayed ({g['policy_keyframes']} keyframes inserted by the "
               f"policy)"] = g["kf_replays"] > 0
@@ -1330,13 +1362,180 @@ def ring_pose_graph(n: int, device):
     return pose_graph.PoseGraphProblem(*(x.to(device) for x in problem))
 
 
+# The segment-sum kernel's calls timed in phases 5b and 6b (d), by name.
+SEGSUM_CALLS = {}
+
+
+@contextlib.contextmanager
+def unmasked_plain_sums():
+    """The solvers' float segment sums as they ran before the kernel: the
+    unmasked index (a padded slot's ±0 addends in its camera's segment and
+    clamped onto point or vertex 0) and torch.segment_reduce."""
+    from orb_slam_cuda_tpu_torch.ops import segsum
+    from orb_slam_cuda_tpu_torch.solvers import bundle_adjust as ba
+    from orb_slam_cuda_tpu_torch.solvers import pose_graph
+
+    def index(n, idx, valid=None):
+        return segsum.segment_index(n, idx)
+
+    def plain(seg, vals):
+        return segsum.segsum_plain(seg, vals) if vals.is_floating_point() else segsum.segsum(seg, vals)
+
+    saved = [(m, a, getattr(m, a)) for m in (ba, pose_graph) for a in ("segment_index", "segsum")]
+    for m in (ba, pose_graph):
+        m.segment_index, m.segsum = index, plain
+    try:
+        yield
+    finally:
+        for m, a, v in saved:
+            setattr(m, a, v)
+
+
+def _bits_equal(a, b) -> bool:
+    """torch.equal, with -0.0 apart from +0.0 for floats."""
+    import torch
+
+    if a.is_floating_point():
+        return a.dtype == b.dtype and torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+    return torch.equal(a, b)
+
+
+def ba_sum_calls(problem, cam):
+    """The segment-sum calls of a BA's first normal equations, as the
+    solve makes them: (Hcc's (seg, vals), K = 36; Hpp's, K = 9)."""
+    from orb_slam_cuda_tpu_torch.solvers import bundle_adjust as ba
+
+    calls, real = [], ba.segsum
+
+    def spy(seg, vals):
+        if vals.is_floating_point():
+            calls.append((seg, vals))
+        return real(seg, vals)
+
+    ba.segsum = spy
+    try:
+        ba.bundle_adjust(problem, cam, lm_iters=1, cg_iters=1)
+    finally:
+        ba.segsum = real
+    hcc = next(c for c in calls if c[1].dim() == 3 and c[1].shape[1] == 6)
+    hpp = next(c for c in calls if c[1].dim() == 3 and c[1].shape[1] == 3)
+    return hcc, hpp
+
+
+def segsum_call(label, seg, parent_idx, vals):
+    """The segment-sum kernel on one real call (`seg`, `vals`): launched
+    twice, held against its plain version, against segment_reduce on the
+    unmasked index `parent_idx` (the sums before the kernel) and with the
+    padding spread over trash segments of SEGSUM_TRASH addends, all bit for
+    bit; its device time warm and cold and as called, the bound, the plain
+    version's and the two library calls' times (each the one
+    segment_reduce call, its input gathered beforehand). Gated; recorded
+    in SEGSUM_CALLS[label]."""
+    import math
+
+    import torch
+
+    from orb_slam_cuda_tpu_torch.ops import segsum
+
+    launches0 = segsum.launches
+    n, e, k = seg.n, vals.shape[0], math.prod(vals.shape[1:])
+    parent = segsum.segment_index(n, parent_idx)
+    invalid = seg.idx >= n
+    n_trash = -(-int(invalid.sum()) // SEGSUM_TRASH)
+    trash_key = torch.where(invalid, n + (torch.cumsum(invalid.long(), 0) - 1) // SEGSUM_TRASH, seg.idx)
+    trash = segsum.segment_index(n + n_trash, trash_key)
+    lib_in, trash_in = vals[parent.order], vals[trash.order]
+
+    def kern():
+        return segsum.launch(seg, vals)
+
+    def library():
+        return torch.segment_reduce(lib_in, "sum", lengths=parent.lengths, axis=0, unsafe=True)
+
+    def library_trash():
+        return torch.segment_reduce(trash_in, "sum", lengths=trash.lengths, axis=0, unsafe=True)
+
+    out, again = kern(), kern()
+    others = {"two launches": again, "plain version": segsum.segsum_plain(seg, vals),
+              "segment_reduce, unmasked index": library(), "segment_reduce, trash segments": library_trash()[:n]}
+    torch.cuda.synchronize()
+    parted = [name for name, o in others.items() if not _bits_equal(out, o)]
+    err = max(_max_abs(out, o) for o in others.values())
+    flush = torch.empty(128 * 1024 * 1024 // 4, device=vals.device)  # 128 MB > the 50 MB L2
+    warm = device_median_ms(kern, inner=10)
+    cold = device_median_ms(kern, before=flush.zero_)
+    called = cuda_median_ms(lambda: segsum.segsum(seg, vals))
+    plain_ms = cuda_median_ms(lambda: segsum.segsum_plain(seg, vals))
+    library_ms = device_median_ms(library, inner=3)
+    trash_ms = device_median_ms(library_trash, inner=3)
+    segsum.launches = launches0  # these launches are not a path's
+    n_valid = int(seg.offsets[-1])
+    nbytes = n_valid * (4 * k + 8) + (n + 1) * 8 + n * k * 4
+    by_bytes, by_ops = nbytes / PEAK_BYTES_PER_S * 1e3, n_valid * k / PEAK_FP32_OPS_PER_S * 1e3
+    bound_ms, bound_by = max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations")
+    chain, parent_chain = int(seg.lengths.max()), int(parent.lengths.max())
+    log(f"segsum on {label}: {e} slots, {n_valid} valid, {n} segments of K = {k} (longest valid segment "
+        f"{chain} addends; {parent_chain} on the unmasked index); bit-equal to "
+        + ", ".join(f"{name} {'yes' if name not in parted else 'NO'}" for name in others)
+        + f"; device {warm:.4f} ms warm (10 calls a pair of events), {cold:.4f} ms cold L2, as called "
+        f"{called:.4f} ms; bound {bound_ms:.6f} ms by {bound_by} ({nbytes} bytes; {n_valid * k} adds "
+        f"{by_ops:.6f} ms); share {bound_ms / warm:.4f} warm; plain version {plain_ms:.4f} ms as called; library "
+        f"call (segment_reduce, device, warm) {library_ms:.4f} ms on the unmasked index, {trash_ms:.4f} ms with "
+        f"the padding over {n_trash} trash segments of <= {SEGSUM_TRASH}")
+    check_gates(f"segsum kernel, {label}", {f"bit-equal to {name}": name not in parted for name in others})
+    SEGSUM_CALLS[label] = {"slots": e, "valid": n_valid, "segments": n, "k": k, "longest_segment": chain,
+                           "longest_segment_unmasked": parent_chain, "max_abs_err": err, "ms": warm,
+                           "cold_l2_ms": cold, "as_called_ms": called, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                           "bound_by": bound_by, "library_ms": library_ms, "library_trash_ms": trash_ms}
+
+
+def phase_segsum_launches() -> int:
+    """The segment-sum kernel's device launches a call (torch.profiler over
+    host and device) at the local BA's shape (24 cameras x 2,000 slots,
+    2,139 valid, K = 36), gated on one, the kernel. Before the vocabulary
+    phase, as phase_sim3_launches."""
+    import torch
+
+    from orb_slam_cuda_tpu_torch.ops import segsum
+
+    g = torch.Generator().manual_seed(36)
+    e = 24 * 2000
+    valid = torch.zeros(e, dtype=torch.bool)
+    valid[torch.randperm(e, generator=g)[:2139]] = True
+    idx = torch.arange(24).repeat_interleave(2000)
+    vals = torch.where(valid[:, None, None], torch.randn((e, 6, 6), generator=g), torch.zeros(()))
+    seg = segsum.segment_index(24, idx.cuda(), valid.cuda())
+    vals = vals.cuda()
+    launches0 = segsum.launches
+    names = device_event_names(lambda: segsum.launch(seg, vals))
+    segsum.launches = launches0  # the profile's launches are not a path's
+    log(f"segsum device launches a call (torch.profiler): {len(names)} {names}")
+    check_gates("segsum kernel", {"one device launch a segment sum": len(names) == 1 and "segsum_kernel" in names[0]})
+    return len(names)
+
+
+def segsum_row(calls: dict, launches: int, device_launches: int) -> dict:
+    """The kernel table's row: the local BA's Hcc call's numbers, every
+    timed call inside; `device_launches` a call from phase 3."""
+    head = calls["local BA Hcc (K=36)"]
+    return {"name": "segsum", "route": "cuda", "source": SEGSUM_SOURCE,
+            "replaces": "orb_slam_cuda_tpu/solvers/bundle_adjust.py:189", "launches": launches,
+            "max_abs_err": max(c["max_abs_err"] for c in calls.values()), "ms": head["ms"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"], "cold_l2_ms": head["cold_l2_ms"], "as_called_ms": head["as_called_ms"],
+            "device_launches_a_call": device_launches, "calls": calls}
+
+
 def phase_repeatability(slam):
     """One local BA (the last keyframe's window of the orbit's final map,
     round 2's iterations) and one essential-graph solve (a drifted ring of
     RING_KEYFRAMES, 5 Gauss-Newton steps of the loop closer's 15), each run
     twice eagerly (programs.eager()) and then as a program: its first call
     (eager, then the capture) and two replays of the graph. All four
-    results must be torch.equal."""
+    results must be torch.equal. Then each solved eagerly once more with
+    its float sums on segment_reduce over the unmasked index: bit-equal to
+    the kernel's; and the local BA's K = 36 and K = 9 calls timed
+    (`segsum_call`)."""
     import torch
 
     from orb_slam_cuda_tpu_torch.engine import programs
@@ -1348,7 +1547,7 @@ def phase_repeatability(slam):
     problem, _, _ = gather_local_ba_problem(slam.state, slam.kf_order[-1], slam.cam, m.level_inv_sigma2,
                                             n_local=m.lba_local, n_fixed=m.lba_fixed, n_points=m.lba_points)
     graph = ring_pose_graph(RING_KEYFRAMES, slam.device)
-    runs = {}
+    runs, unmasked = {}, {}
     for name, fn, arg in (("local BA", lambda p: ba.bundle_adjust(p, slam.cam, lm_iters=10, cg_iters=15), problem),
                           ("essential graph", lambda g: pose_graph.optimize_pose_graph(g, gn_iters=5, cg_iters=30),
                            graph)):
@@ -1365,10 +1564,24 @@ def phase_repeatability(slam):
         runs[name] = same and replayed
         log(f"repeatability, {name}: two eager solves, the program's capture and two replays on the same inputs "
             f"{'torch.equal' if same else 'DIFFER'} (replays {program.stats()['replays']}); " + ", ".join(ms))
+        t0 = time.perf_counter()
+        with programs.eager(), unmasked_plain_sums():
+            old = fn(arg)
+        _synchronize(slam.device)
+        unmasked[name] = all(_bits_equal(x, y) for x, y in zip(outs[0], old))
+        log(f"segsum, {name}: the eager solve with its float sums on segment_reduce over the unmasked index "
+            f"{(time.perf_counter() - t0) * 1e3:.2f} ms (through the kernel: {ms[0]}), bit-equal to the kernel's "
+            f"{unmasked[name]}")
     log(f"repeatability: local BA of {int(problem.obs_valid.sum())} observations, "
         f"{int(problem.pt_valid.sum())} points, {problem.cam_pose.shape[0]} cameras; essential graph of "
         f"{RING_KEYFRAMES} keyframes and {graph.edge_i.shape[0]} edges")
     check_gates("repeatability", {f"{k} repeats bit for bit, eager and graphed": v for k, v in runs.items()})
+    check_gates("segsum kernel", {f"{k} through the kernel bit-equal to segment_reduce on the unmasked index": v
+                                  for k, v in unmasked.items()})
+    if slam.device.type == "cuda":
+        hcc, hpp = ba_sum_calls(problem, slam.cam)
+        segsum_call("local BA Hcc (K=36)", hcc[0], torch.clamp(problem.obs_cam, min=0).long(), hcc[1])
+        segsum_call("local BA Hpp (K=9)", hpp[0], torch.clamp(problem.obs_pt, min=0).long(), hpp[1])
 
 
 def circuit_scene():
@@ -1843,7 +2056,20 @@ def phase_parallel(slam):
         f"{_max_abs(single_cpu.cam_pose, res[0].cam_pose):.3g}, point diff {_max_abs(single_cpu.xyz, res[0].xyz):.3g}, "
         f"inlier mismatches {int((single_cpu.obs_inlier != res[0].obs_inlier).sum())}, final error "
         f"{float(res[0].final_error):.6g}")
+    # (d) the segment-sum kernel on the global-BA problem
+    cmp_iters = dict(lm_iters=2, cg_iters=PAR_CG_ITERS)
+    new, new_s = timed_solve(lambda: ba.bundle_adjust(problem, cam, **cmp_iters))
+    with unmasked_plain_sums():
+        old, old_s = timed_solve(lambda: ba.bundle_adjust(problem, cam, **cmp_iters))
+    unmasked_equal = all(_bits_equal(x, y) for x, y in zip(new, old))
+    log(f"parallel (d): global BA {cmp_iters} through the segsum kernel {new_s * 1e3:.2f} ms, on segment_reduce "
+        f"over the unmasked index {old_s * 1e3:.2f} ms; bit-equal {unmasked_equal}")
+    if on_gpu:
+        hcc, hpp = ba_sum_calls(problem, cam)
+        segsum_call("global BA Hcc (K=36)", hcc[0], torch.clamp(problem.obs_cam, min=0).long(), hcc[1])
+        segsum_call("global BA Hpp (K=9)", hpp[0], torch.clamp(problem.obs_pt, min=0).long(), hpp[1])
     check_gates("parallel", {
+        "(d) global BA through the segsum kernel bit-equal to segment_reduce on the unmasked index": unmasked_equal,
         f"(a) 1 rank within {PAR_POSE_TOL} / {PAR_POINT_TOL} of bundle_adjust": close(single, one),
         "(a) inlier masks equal": torch.equal(single.obs_inlier, one.obs_inlier),
         "(b) the 2 ranks torch.equal": ranks_equal,
@@ -2094,6 +2320,7 @@ def phase_cli_path(device=None):
             f"ATE sim(3) <= {CLI_ATE_GATE:.4f} m": ate <= CLI_ATE_GATE,
             f"fast launches == {want} (frames read)": launches == want and len(rows) == CLI_FRAMES,
             "gated dlt launched (keyframes inserted)": dlt["gated"] > 0 or not on_gpu or int(rows[-1]["keyframes"]) < 3,
+            "segsum launched (keyframes inserted)": dlt["segsum"] > 0 or not on_gpu or int(rows[-1]["keyframes"]) < 3,
             "last pose finite": bool(np.isfinite(last).all()),
             "shutdown line printed": any(line.startswith("tracked ") for line in lines),
         })
@@ -2138,7 +2365,7 @@ def _stereo_worker(queue, device, n_frames):
         t0 = time.perf_counter()
         launches = phase_stereo_path(*make_stereo_fixture(device, n_frames),
                                      device=None if device == "cuda" else device)
-        queue.put(dict(launches=launches, dlt=PATH_LAUNCHES.get("stereo path", {"dlt": 0, "gated": 0, "sim3": 0}),
+        queue.put(dict(launches=launches, dlt=PATH_LAUNCHES.get("stereo path", dict.fromkeys(PATH_KERNELS, 0)),
                        seconds=time.perf_counter() - t0, log=out.getvalue()))
     except BaseException:
         queue.put(dict(error=traceback.format_exc(), log=out.getvalue()))
@@ -2216,6 +2443,7 @@ def main() -> int:
     timed("kernels", check_against_cpu, frames[0])
     timed("kernels", phase_extract_launches, frames[0])
     sim3_device_launches = timed("kernels", phase_sim3_launches)
+    segsum_device_launches = timed("kernels", phase_segsum_launches)
     vocab = timed("vocabulary", phase_vocabulary)
     launches, orbit_slam = timed("orbit path", phase_main_path, cam, poses, frames, vocab=vocab)
     dlt_row, gated_row = timed("kernels", phase_dlt_kernel, orbit_slam)
@@ -2245,10 +2473,11 @@ def main() -> int:
     # above, but no path calls it: its row stands apart from the main
     # path's kernel table.
     print(json.dumps({"entry_points_off_the_main_path": [dict(pair_row, launches=0)]}), flush=True)
-    log(f"dlt and sim3 launches by path: {PATH_LAUNCHES}")
-    total = {k: sum(n.get(k, 0) for n in PATH_LAUNCHES.values()) for k in ("dlt", "gated", "sim3")}
+    log(f"dlt, sim3 and segsum launches by path: {PATH_LAUNCHES}")
+    total = {k: sum(n.get(k, 0) for n in PATH_LAUNCHES.values()) for k in PATH_KERNELS}
     print(json.dumps({"kernels": [dict(pyramid_row, launches=launches), dict(dlt_row, launches=total["dlt"]),
-                                  dict(gated_row, launches=total["gated"]), dict(sim3_row, launches=total["sim3"])]}),
+                                  dict(gated_row, launches=total["gated"]), dict(sim3_row, launches=total["sim3"]),
+                                  segsum_row(SEGSUM_CALLS, total["segsum"], segsum_device_launches)]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

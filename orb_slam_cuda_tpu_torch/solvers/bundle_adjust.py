@@ -3,9 +3,12 @@ gradients over batched residual/Jacobian blocks (torch port of
 orb_slam_cuda_tpu/solvers/bundle_adjust.py).
 
 Segment sums go through `ops/segsum.py`: the observation index is sorted
-once per call and every sum adds each segment in observation order, so a
-solve gives the same bits from run to run on CUDA and the bits of
-`index_add_` on the CPU. Accept/reject steps are tensor `where`s (no
+once per call, the invalid (padded) slots left out, and every sum adds
+each segment's valid observations in observation order, so a solve gives
+the same bits from run to run on CUDA and the bits of `index_add_` on the
+CPU. A left-out slot's addends are exactly ±0 (its weight and masked
+residual are 0, its Jacobians finite), so leaving them out keeps the
+bits of an index that holds them. Accept/reject steps are tensor `where`s (no
 sync).
 
 With `group` (a `torch.distributed` process group) the function is one
@@ -112,8 +115,8 @@ def bundle_adjust(problem: BAProblem, cam: Camera, lm_iters: int = 10,
     pi = torch.clamp(problem.obs_pt, min=0).long()
     ov = problem.obs_valid.to(torch.int32)
     nres = ov * torch.where(problem.obs_ur >= 0, 3, 2).to(torch.int32)
-    seg_c = segment_index(C, ci)
-    seg_p = segment_index(P, pi)
+    seg_c = segment_index(C, ci, valid=problem.obs_valid)
+    seg_p = segment_index(P, pi, valid=problem.obs_valid)
     nobs_cam = psum(segsum(seg_c, ov))
     nres_pt = segsum(seg_p, nres)
     cam_free = ~problem.cam_fixed & (nobs_cam > 0)

@@ -5,8 +5,9 @@ Per-edge residual r = log(S_ji o S_i o S_j^-1) with Jacobians from
 forward-mode derivatives over the two 7-dim tangents, all edges at once
 (`sim3.tangent_jacobian`, in float64, rounded to float32), then Gauss-Newton steps solved by block-Jacobi
 preconditioned CG over segment sums of the edge list. The sums go through
-`ops/segsum.py` (each edge end sorted once per solve, each segment added
-in edge order), so a solve gives the same bits from run to run on CUDA.
+`ops/segsum.py` (each edge end sorted once per solve, padded edges left
+out, each segment added in edge order), so a solve gives the same bits
+from run to run on CUDA.
 """
 
 from __future__ import annotations
@@ -54,8 +55,8 @@ def optimize_pose_graph(problem: PoseGraphProblem, gn_iters: int = 20, cg_iters:
     dev = problem.vert_R.device
     ei = torch.clamp(problem.edge_i, min=0).long()
     ej = torch.clamp(problem.edge_j, min=0).long()
-    seg_i = segment_index(K, ei)
-    seg_j = segment_index(K, ej)
+    seg_i = segment_index(K, ei, valid=problem.edge_valid)
+    seg_j = segment_index(K, ej, valid=problem.edge_valid)
     free = ~problem.vert_fixed
     w_e = problem.edge_valid.to(torch.float32)
     meas = (problem.meas_R, problem.meas_t, problem.meas_s)

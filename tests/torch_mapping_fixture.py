@@ -6,7 +6,8 @@ and fusion work on). Descriptors and vocabulary nodes follow the point,
 image points are exact projections, so both packages' eigen-solvers
 agree to float rounding. Also the triangulation gate's degenerate cases
 (`degenerate`), which the CPU tests hold against the JAX package and the
-card tests hold the kernel to."""
+card tests hold the kernel to. `local_ba_problem` gathers the local BA
+window of the fixture's new keyframe, as the mapper does."""
 
 from __future__ import annotations
 
@@ -114,3 +115,28 @@ def degenerate(case):
     idx = np.arange(n)[::-1].copy() if case != "unmatched" else np.full(n, -1)
     oct_ = np.array([0, 3, -1] if case != "scale_edge" else [2, 2, 99], np.int32)[:n]
     return T1, T2, xy1, uv2, idx.astype(np.int64), oct_, oct_[::-1].copy(), expect
+
+
+def local_ba_problem(device="cpu"):
+    """(BAProblem, Camera): the local BA window of the new keyframe (slot
+    N_LIVE - 1) over the fixture's map on `device`, gathered as the mapper
+    gathers it (8 local and 4 fixed cameras, 256 points): 12 x 96 dense
+    observation slots, about a quarter of them valid."""
+    import types
+
+    import torch
+
+    from orb_slam_cuda_tpu_torch.engine import local_mapping
+    from orb_slam_cuda_tpu_torch.geometry.camera import Camera
+    from orb_slam_cuda_tpu_torch.slam_map import MapConfig
+    from orb_slam_cuda_tpu_torch.slam_map import ops as map_ops
+    from orb_slam_cuda_tpu_torch.utils import convert
+
+    cfg = MapConfig(max_keyframes=K, max_features=N, max_points=P)
+    state = convert.map_state(types.SimpleNamespace(**arrays()), device)
+    state = map_ops.update_point_stats(map_ops.refresh_covis_rows(state, torch.arange(K, device=device)), cfg)
+    cam = Camera.create(**CAM_ARGS)
+    inv_sig = 1.0 / torch.as_tensor(cfg.level_sigma2, dtype=torch.float32)
+    problem, _, _ = local_mapping.gather_local_ba_problem(state, N_LIVE - 1, cam, inv_sig, n_local=8, n_fixed=4,
+                                                          n_points=256)
+    return problem, cam

@@ -3,7 +3,8 @@ with the port's own code on any device (no JAX): a ring of keyframes
 inside a cylinder of wall points, poses integrating noisy odometry, and
 the two revisiting keyframes holding fresh duplicates of the start's
 points. Same draws from `rng` in the same order as the reference's
-`build_drifted_ring`, so both make the same map."""
+`build_drifted_ring`, so both make the same map. Also `padded_pose_graph`,
+an essential graph on a ring with padded edges among its real ones."""
 
 from __future__ import annotations
 
@@ -120,3 +121,41 @@ def build_drifted_ring(rng, n_kf: int = 16, drift: float = 0.02, device="cpu"):
     st = map_ops.update_point_stats(st, CFG)
     st = st._replace(covis=map_ops.covisibility_matrix(st))
     return st, db, T_true, T_est, vocab.to(device)
+
+
+def padded_pose_graph(device="cpu", n: int = 12, pad: int = 9):
+    """A PoseGraphProblem of `n` keyframes on a circle (the chain, the
+    second neighbours and a loop edge with a drifted measurement) with
+    `pad` padded edges (-1 ends, identity measurements, edge_valid False)
+    spread among the real ones. Vertex 3 is fixed; vertex 0, onto which
+    the padded edges clamp, is free."""
+    from orb_slam_cuda_tpu_torch.solvers import pose_graph
+
+    g = torch.Generator().manual_seed(5)
+    ang = torch.arange(n, dtype=torch.float64) * (2 * np.pi / n)
+    xi = torch.zeros((n, 6), dtype=torch.float64)
+    xi[:, 0], xi[:, 2], xi[:, 4] = 5 * torch.cos(ang), 5 * torch.sin(ang), ang
+    T = se3.exp(xi.float())
+    R, t, s = T[:, :3, :3], T[:, :3, 3], torch.ones(n)
+    ei = torch.cat([torch.arange(n - 1), torch.arange(n - 2), torch.tensor([0])])
+    ej = torch.cat([torch.arange(1, n), torch.arange(2, n), torch.tensor([n - 1])])
+    mR, mt, ms = pose_graph.relative_sim3((R[ei], t[ei], s[ei]), (R[ej], t[ej], s[ej]))
+    mt[-1] += torch.tensor([0.3, 0.0, 0.2])
+    ms[-1] *= 1.05
+    E = ei.shape[0] + pad
+    real = torch.randperm(E, generator=g)[:ei.shape[0]]
+
+    def spread(x, fill):
+        out = fill.expand((E,) + x.shape[1:]).clone()
+        out[real] = x
+        return out
+
+    fixed = torch.zeros(n, dtype=torch.bool)
+    fixed[3] = True
+    valid = torch.zeros(E, dtype=torch.bool)
+    valid[real] = True
+    problem = pose_graph.PoseGraphProblem(
+        vert_R=R, vert_t=t + torch.randn((n, 3), generator=g) * 0.05, vert_s=s, vert_fixed=fixed,
+        edge_i=spread(ei, torch.tensor(-1)), edge_j=spread(ej, torch.tensor(-1)), meas_R=spread(mR, torch.eye(3)),
+        meas_t=spread(mt, torch.zeros(3)), meas_s=spread(ms, torch.tensor(1.0)), edge_valid=valid)
+    return pose_graph.PoseGraphProblem(*(x.to(device) for x in problem))
