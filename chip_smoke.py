@@ -55,16 +55,19 @@ Phases, each printing its own lines:
      capturing call and two replays of its CUDA graph): all torch.equal;
      the times of each call show what a capture costs (the System runs
      the essential-graph solve eagerly: a path closes one or two loops).
-     Then the segment-sum kernel (csrc/segsum.cu): both solves again with
+     Then the segment-sum kernels (csrc/segsum.cu): both solves again with
      their float sums on torch.segment_reduce over the unmasked index (the
      padded slots' zero addends clamped onto segment 0, as the solvers
-     summed before the kernel): torch.equal, bit for bit, to the kernel's;
-     and the kernel on the local BA's K = 36 (Hcc) and K = 9 (Hpp) calls,
-     as the solve makes them: torch.equal to its plain version and to
-     segment_reduce on the unmasked index, its device time warm and cold
-     and as called, the bound by bytes, the plain version's time and the
-     library call's (segment_reduce on the unmasked index, and with the
-     padding spread over trash segments of at most 32 addends);
+     summed before the kernel): torch.equal, bit for bit, to the kernels';
+     and the local BA's K = 36 (Hcc) and K = 9 (Hpp) calls, as the solve
+     makes them, each through the kernel that the source's rule picks
+     (named): torch.equal to its plain version and to segment_reduce on
+     the unmasked index, its device time warm and cold and as called, the
+     bound by bytes, the ordered floor (the longest chain of dependent
+     adds at 4 cycles an add at the card's top SM clock), the plain
+     version's time and the library call's (segment_reduce on the
+     unmasked index, and with the padding spread over trash segments of at
+     most 32 addends);
   5c. programs: on the card every path runs its per-frame stages as
      captured CUDA graphs (engine/programs.py). The orbit at lag 0 (all
      108 frames), the first 30 stereo pairs of phase 7's circuit and the
@@ -108,8 +111,9 @@ Phases, each printing its own lines:
      the bound (Horn's Jacobi sweeps counted on the call's inputs) on both
      calls, and the plain version's time on the real one. Its gate of one
      device launch a call (torch.profiler, on the full-width call) runs in
-     phase 3, before the vocabulary phase, with the segment-sum kernel's
-     (one device launch a call at the local BA's shape);
+     phase 3, before the vocabulary phase, with the segment sum's (one
+     device launch a call at the local BA's shape, of the kernel that the
+     rule picks there);
   6b. parallel: the distributed back end on the loop path's final map.
      (a) its global-BA problem (as the loop closer gathers it) solved by
      bundle_adjust and by distributed_bundle_adjust on a 1-rank NCCL
@@ -241,6 +245,10 @@ SEGSUM_SOURCE = "orb_slam_cuda_tpu_torch/csrc/segsum.cu"
 # and the (n, K) sums written once; its operations are one float add an
 # addend.
 SEGSUM_TRASH = 32  # the library call's padding spread over segments of at most this many addends
+# The ordered floor of a segment sum: its longest segment's chain of
+# dependent float adds, FADD_CYCLES each (Hopper's dependent FP32 add), at
+# the card's top SM clock (nvidia-smi clocks.max.sm).
+FADD_CYCLES = 4
 # The least work of the function a point, whatever the kernel does (its
 # double arithmetic is its own choice): A (16 products, 16 differences),
 # the 10 entries of the symmetric A^T A (4 products and 3 sums each), the
@@ -439,6 +447,13 @@ def phase_device():
     card = smi.stdout.strip().splitlines()[0]
     log(card)
     return card
+
+
+def sm_clock_mhz() -> float:
+    """The card's top SM clock in MHz, as nvidia-smi reports it."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True)
+    return float(smi.stdout.strip().splitlines()[0])
 
 
 def phase_build():
@@ -1427,7 +1442,8 @@ def segsum_call(label, seg, parent_idx, vals):
     twice, held against its plain version, against segment_reduce on the
     unmasked index `parent_idx` (the sums before the kernel) and with the
     padding spread over trash segments of SEGSUM_TRASH addends, all bit for
-    bit; its device time warm and cold and as called, the bound, the plain
+    bit; the kernel that the source's rule picks for it, its device time
+    warm and cold and as called, the bound, the ordered floor, the plain
     version's and the two library calls' times (each the one
     segment_reduce call, its input gathered beforehand). Gated; recorded
     in SEGSUM_CALLS[label]."""
@@ -1474,26 +1490,30 @@ def segsum_call(label, seg, parent_idx, vals):
     by_bytes, by_ops = nbytes / PEAK_BYTES_PER_S * 1e3, n_valid * k / PEAK_FP32_OPS_PER_S * 1e3
     bound_ms, bound_by = max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations")
     chain, parent_chain = int(seg.lengths.max()), int(parent.lengths.max())
+    kernel, mhz = segsum.kernel_name(n, k), sm_clock_mhz()
+    floor_ms = chain * FADD_CYCLES / (mhz * 1e6) * 1e3
     log(f"segsum on {label}: {e} slots, {n_valid} valid, {n} segments of K = {k} (longest valid segment "
-        f"{chain} addends; {parent_chain} on the unmasked index); bit-equal to "
+        f"{chain} addends; {parent_chain} on the unmasked index); served by {kernel}; bit-equal to "
         + ", ".join(f"{name} {'yes' if name not in parted else 'NO'}" for name in others)
         + f"; device {warm:.4f} ms warm (10 calls a pair of events), {cold:.4f} ms cold L2, as called "
         f"{called:.4f} ms; bound {bound_ms:.6f} ms by {bound_by} ({nbytes} bytes; {n_valid * k} adds "
-        f"{by_ops:.6f} ms); share {bound_ms / warm:.4f} warm; plain version {plain_ms:.4f} ms as called; library "
+        f"{by_ops:.6f} ms); ordered floor {floor_ms:.6f} ms ({chain} adds x {FADD_CYCLES} cycles at {mhz:.0f} "
+        f"MHz); share {bound_ms / warm:.4f} warm; plain version {plain_ms:.4f} ms as called; library "
         f"call (segment_reduce, device, warm) {library_ms:.4f} ms on the unmasked index, {trash_ms:.4f} ms with "
         f"the padding over {n_trash} trash segments of <= {SEGSUM_TRASH}")
     check_gates(f"segsum kernel, {label}", {f"bit-equal to {name}": name not in parted for name in others})
-    SEGSUM_CALLS[label] = {"slots": e, "valid": n_valid, "segments": n, "k": k, "longest_segment": chain,
+    SEGSUM_CALLS[label] = {"kernel": kernel, "slots": e, "valid": n_valid, "segments": n, "k": k,
+                           "longest_segment": chain, "ordered_floor_ms": floor_ms,
                            "longest_segment_unmasked": parent_chain, "max_abs_err": err, "ms": warm,
                            "cold_l2_ms": cold, "as_called_ms": called, "plain_ms": plain_ms, "bound_ms": bound_ms,
                            "bound_by": bound_by, "library_ms": library_ms, "library_trash_ms": trash_ms}
 
 
 def phase_segsum_launches() -> int:
-    """The segment-sum kernel's device launches a call (torch.profiler over
-    host and device) at the local BA's shape (24 cameras x 2,000 slots,
-    2,139 valid, K = 36), gated on one, the kernel. Before the vocabulary
-    phase, as phase_sim3_launches."""
+    """The segment sum's device launches a call (torch.profiler over host
+    and device) at the local BA's shape (24 cameras x 2,000 slots, 2,139
+    valid, K = 36), gated on one, of the kernel that the source's rule
+    picks there. Before the vocabulary phase, as phase_sim3_launches."""
     import torch
 
     from orb_slam_cuda_tpu_torch.ops import segsum
@@ -1509,8 +1529,9 @@ def phase_segsum_launches() -> int:
     launches0 = segsum.launches
     names = device_event_names(lambda: segsum.launch(seg, vals))
     segsum.launches = launches0  # the profile's launches are not a path's
-    log(f"segsum device launches a call (torch.profiler): {len(names)} {names}")
-    check_gates("segsum kernel", {"one device launch a segment sum": len(names) == 1 and "segsum_kernel" in names[0]})
+    kernel = segsum.kernel_name(24, 36)
+    log(f"segsum device launches a call (torch.profiler): {len(names)} {names}; the rule picks {kernel}")
+    check_gates("segsum kernel", {f"one device launch a segment sum, {kernel}": len(names) == 1 and kernel in names[0]})
     return len(names)
 
 

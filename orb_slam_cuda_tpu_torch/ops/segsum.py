@@ -24,12 +24,17 @@ to it changes nothing.
 `segsum(seg, vals)`, the dispatch: integer addends go through
 `index_add_`, which is exact in any order; float32 addends on a CUDA
 device launch the kernel (or raise: nothing falls back); on the CPU they
-take `segsum_plain`, `torch.segment_reduce` on the same index. A launch
-counts one in `launches` (module attribute), or in `recorded` under graph
-capture; engine/programs.py adds a graph's recorded launches at each
-replay. The kernel is built at first CUDA use with nvcc for sm_90a into
-`build/kernels/` at the repository root, a shared library with a plain C
-interface loaded through ctypes, as ops/sim3_kernel.py builds.
+take `segsum_plain`, `torch.segment_reduce` on the same index. The source
+holds two kernels, a block a segment for few, long segments and a thread
+a (segment, column) for many short ones; its entry `segsum` chooses one
+from the segment count and K alone (`kernel_name` says which), and
+`launch_entry` calls either kernel's own entry, for the tests and
+tests/torch_segsum_ab.py. A launch counts one in `launches` (module
+attribute), or in `recorded` under graph capture; engine/programs.py adds
+a graph's recorded launches at each replay. The kernels are built at
+first CUDA use with nvcc for sm_90a into `build/kernels/` at the
+repository root, a shared library with a plain C interface loaded through
+ctypes, as ops/sim3_kernel.py builds.
 
 `last_writes` does the same for a plain scatter `out[idx] = v` that
 writes one index more than once: CUDA writes them in no fixed order, and
@@ -121,9 +126,10 @@ def segsum_plain(seg: SegmentIndex, vals):
     return out.reshape((seg.n,) + vals.shape[1:])
 
 
-def segment_sum(n: int, idx, vals):
-    """One sum over a segment index used once."""
-    return segsum(segment_index(n, idx), vals)
+def segment_sum(n: int, idx, vals, valid=None):
+    """One sum over a segment index used once (`valid` as in
+    `segment_index`)."""
+    return segsum(segment_index(n, idx, valid), vals)
 
 
 def build() -> tuple:
@@ -135,20 +141,43 @@ def build() -> tuple:
     return path, time.perf_counter() - t0
 
 
+ENTRIES = ("segsum", "segsum_block", "segsum_rows")
+KERNELS = {"segsum_block": "segsum_block_kernel", "segsum_rows": "segsum_rows_kernel"}
+
+
 def _load():
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(build()[0])
         ptr = ctypes.c_void_p
-        lib.segsum.argtypes = [ptr, ptr, ptr, ctypes.c_int64, ctypes.c_int, ptr, ptr]
-        lib.segsum.restype = ctypes.c_int
+        for name in ENTRIES:
+            fn = getattr(lib, name)
+            fn.argtypes = [ptr, ptr, ptr, ctypes.c_int64, ctypes.c_int, ptr, ptr]
+            fn.restype = ctypes.c_int
+        lib.segsum_uses_block.argtypes = [ctypes.c_int64, ctypes.c_int]
+        lib.segsum_uses_block.restype = ctypes.c_int
+        lib.segsum_tile_rows.argtypes = [ctypes.c_int]
+        lib.segsum_tile_rows.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def kernel_name(n: int, k: int) -> str:
+    """The kernel that `segsum` launches for n segments of width k."""
+    return KERNELS["segsum_block" if _load().segsum_uses_block(n, k) else "segsum_rows"]
 
 
 def launch(seg: SegmentIndex, vals):
     """The kernel on CUDA tensors: `vals` (E, ...) float32, contiguous, on
     the device of the index. Returns (n, ...) float32."""
+    return launch_entry("segsum", seg, vals)
+
+
+def launch_entry(entry: str, seg: SegmentIndex, vals):
+    """`launch` through one of the library's ENTRIES: `segsum` (the
+    choice), `segsum_block` (K = 1, 3, 6, 7, 9, 36 or 49) or `segsum_rows`."""
+    if entry not in ENTRIES:
+        raise ValueError(f"segsum: no entry {entry!r}; the library's are {ENTRIES}")
     device = vals.device
     if device.type != "cuda":
         raise ValueError(f"segsum: the kernel runs on CUDA tensors, got {device}")
@@ -166,12 +195,12 @@ def launch(seg: SegmentIndex, vals):
     out = torch.empty((n,) + vals.shape[1:], dtype=torch.float32, device=device)
     if n * k == 0:
         return out
-    lib = _load()
+    fn = getattr(_load(), entry)
     with torch.cuda.device(device):
-        rc = lib.segsum(vals.data_ptr(), seg.order.data_ptr(), seg.offsets.data_ptr(), n, k, out.data_ptr(),
-                        torch.cuda.current_stream(device).cuda_stream)
+        rc = fn(vals.data_ptr(), seg.order.data_ptr(), seg.offsets.data_ptr(), n, k, out.data_ptr(),
+                torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"segsum kernel launch failed: cudaError {rc}")
+        raise RuntimeError(f"segsum kernel launch failed ({entry}): cudaError {rc}")
     mod = sys.modules[__name__]
     if torch.cuda.is_current_stream_capturing():
         mod.recorded += 1

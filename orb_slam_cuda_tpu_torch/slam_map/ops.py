@@ -162,7 +162,10 @@ def update_point_stats(state: MapState, cfg: MapConfig) -> MapState:
     centers_e = centers.repeat_interleave(N, dim=0)
     vec = state.mp_xyz[flat_pt] - centers_e
     vec = vec / torch.clamp(torch.linalg.norm(vec, dim=-1, keepdim=True), min=1e-9)
-    sum_n = segment_sum(P, flat_pt, vec * w[:, None])
+    # Slots that hold no observation (unbound ones, which `_seg` clamps onto
+    # point 0, and rows of invalid keyframes) add ±0 and are left out, so no
+    # sum walks them; the bits stay.
+    sum_n = segment_sum(P, flat_pt, vec * w[:, None], valid=ov)
     normal = sum_n / torch.clamp(torch.linalg.norm(sum_n, dim=-1, keepdim=True), min=1e-9)
     new_normal = torch.where(has_obs[:, None], normal, state.mp_normal)
 

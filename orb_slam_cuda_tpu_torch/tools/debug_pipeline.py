@@ -44,7 +44,8 @@ fall on the same frames and whose graphs are captured at the same
 frames), with those frames and the last KF_OTHER frames without
 keyframe work each under a torch.profiler of its own. For both kinds
 apart it prints the host API launches, device kernels, device ms and
-wall ms a frame and the card's idle share, beside the `local_mapping`
+wall ms a frame, the card's idle share and the top kernels' and the
+segment-sum kernels' device ms a frame, beside the `local_mapping`
 and `local_ba2` means; the graphed run must capture at none of the
 profiled frames.
 
@@ -240,14 +241,17 @@ def keyframe_frames(cs, rgbd):
                 for i in sel:
                     for k, us in by_frame[i].items():
                         top[k] = top.get(k, 0.0) + us / 1e3 / len(sel)
+                segsums = {k: v for k, v in top.items() if "segsum" in k}
                 top = dict(sorted(top.items(), key=lambda kv: -kv[1])[:10])
                 rec[kind] = dict(frames=sel, host_launches_per_frame=host, device_kernels_per_frame=kernels,
                                  device_ms_per_frame=busy / 1e3, wall_ms_per_frame=wall / 1e3,
-                                 idle_share=1.0 - a[:, 2].sum() / a[:, 3].sum(), top_device_ms_per_frame=top)
+                                 idle_share=1.0 - a[:, 2].sum() / a[:, 3].sum(), top_device_ms_per_frame=top,
+                                 segsum_device_ms_per_frame=segsums)
                 print(f"keyframe frames, {name}, {mode}, {kind} (frames {sel}, each profiled alone): {host:.1f} "
                       f"host API launches, {kernels:.1f} device kernels, {busy / 1e3:.2f} device ms, "
-                      f"{wall / 1e3:.2f} wall ms a frame; idle share {rec[kind]['idle_share']:.4f}; top device "
-                      f"ms a frame {json.dumps(top)}", flush=True)
+                      f"{wall / 1e3:.2f} wall ms a frame; idle share {rec[kind]['idle_share']:.4f}; segment-sum "
+                      f"kernels' device ms a frame {json.dumps(segsums)}; top device ms a frame {json.dumps(top)}",
+                      flush=True)
             means = {k: v for k, v in slam.timer.summary("timesMapping.csv").items()
                      if k in ("local_mapping", "local_ba2", "loop_detect", "local_mapping_finish")}
             print(f"keyframe frames, {name}, {mode}: timesMapping means {json.dumps(means)}", flush=True)

@@ -11,12 +11,18 @@ padded slots out, as the bundle adjustment and the essential graph use it):
 bit-equal to `index_add_` over every slot when the left-out addends are ±0,
 at every addend width of the call sites (K = 1, 3, 6, 7, 9, 36, 49) and
 with every slot left out, none left out, -0.0 addends, no addends and
-empty segments; its offsets against its lengths; on the mapping fixture's
+empty segments; on the card tests' long cases (tests/torch_segsum_cases.py:
+segments that cross the block kernel's ring of tiles several times or fill
+one tile exactly, at every K, one segment alone, `vals` at a base only 4-
+or 8-byte aligned), `segsum_plain` bit-equal to `index_add_`, which ties
+the plain version to those cases; its offsets against its lengths; on the mapping fixture's
 local BA and on a padded essential-graph ring, `bundle_adjust` and
 `optimize_pose_graph` give torch.equal results with it and with the
 unmasked index the solvers used before; every addend those solvers hand
 to a sum at a left-out slot is exactly ±0 (the premise of that equality);
-and the BA reads nothing back with it (`_SyncSpy`). The kernel itself
+and the BA reads nothing back with it (`_SyncSpy`); the map's point
+normals leave out the observation slots that hold no observation, whose
+addends are ±0 too, with the same bits. The kernel itself
 (csrc/segsum.cu) runs only on the card: tests/test_torch_segsum_card.py.
 (Run to run on CUDA, a card test in test_torch_device.py holds a local BA
 to `torch.equal`, and chip_smoke.py a local BA and an essential-graph
@@ -26,9 +32,10 @@ import chip_smoke
 import numpy as np
 import pytest
 import torch
+import torch_segsum_cases as C
 from torch_mapping_fixture import local_ba_problem
 from torch_parity import _SyncSpy
-from torch_ring import padded_pose_graph
+from torch_ring import CFG, build_drifted_ring, padded_pose_graph
 
 from orb_slam_cuda_tpu_torch.ops import segsum
 from orb_slam_cuda_tpu_torch.slam_map import ops as map_ops
@@ -154,6 +161,21 @@ def test_valid_aware_index_bit_equal_to_index_add(case):
     assert torch.equal(counts, _index_add(n, idx, valid.to(torch.int32)))
 
 
+@pytest.mark.parametrize("case", C.LONG_CASES)
+def test_plain_bit_equal_to_index_add_on_long_cases(case):
+    n, idx, valid, vals = C.case(case)
+    seg = segsum.segment_index(n, idx, valid)
+    out = segsum.segsum_plain(seg, vals)
+    assert torch.equal(_bits(out), _bits(C.index_add(n, idx, vals)))
+    assert torch.equal(_bits(segsum.segsum(seg, vals)), _bits(out))
+    parent = segsum.segsum_plain(segsum.segment_index(n, idx), vals)  # the unmasked index
+    assert torch.equal(_bits(out), _bits(parent))
+    if case.startswith("tiles"):  # the ring crossed, one tile filled, an empty segment
+        t = C.block_tile_rows(int(case.rsplit("_K", 1)[1]))
+        assert t % C.ADD_AHEAD == 0 and int(seg.lengths.max()) >= 3 * t and t in seg.lengths.tolist()
+        assert 0 in seg.lengths.tolist()
+
+
 @pytest.mark.parametrize("case", ["K6", "all_invalid", "none_invalid", "no_addends", "empty_segments"])
 def test_offsets_agree_with_lengths(case):
     n, idx, valid, _ = _padded_sum_case(case)
@@ -210,6 +232,27 @@ def test_left_out_addends_are_signed_zeros(local_ba, monkeypatch, name):
     _solve(name, problem, cam)
     assert len(seen) > 20  # the normal equations and every CG matvec
     assert all(v.numel() > 0 and bool((v == 0).all()) for v in seen)
+
+
+def test_point_normals_leave_out_slots_without_an_observation(monkeypatch):
+    """update_point_stats' normal sum leaves out the (K, N) slots that hold
+    no observation (unbound ones clamped onto point 0, rows of invalid
+    keyframes): their addends are exactly ±0, so the sums are bit-equal to
+    the unmasked index's, which held them all in point 0's segment."""
+    state = build_drifted_ring(np.random.default_rng(3))[0]
+    seen = []
+
+    def spy(n, idx, vals, valid=None):
+        seen.append((n, idx, vals, valid))
+        return segsum.segment_sum(n, idx, vals, valid)
+
+    monkeypatch.setattr(map_ops, "segment_sum", spy)
+    map_ops.update_point_stats(state, CFG)
+    (n, idx, vals, valid), = seen
+    assert valid is not None and 0 < int(valid.sum()) < valid.numel()
+    assert int((idx[~valid] == 0).sum()) > int(valid.sum())  # point 0's segment held the padding
+    assert bool((vals[~valid] == 0).all())
+    assert torch.equal(_bits(segsum.segment_sum(n, idx, vals, valid)), _bits(segsum.segment_sum(n, idx, vals)))
 
 
 def test_bundle_adjust_reads_nothing_back(local_ba):

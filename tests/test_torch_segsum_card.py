@@ -1,25 +1,35 @@
-"""The fixed-order segment sum on the card: the kernel (csrc/segsum.cu
-through ops/segsum.py) against its plain version (`segsum_plain`,
+"""The fixed-order segment sum on the card: the kernels (csrc/segsum.cu
+through ops/segsum.py) against their plain version (`segsum_plain`,
 `torch.segment_reduce` on the same valid-aware index) and against the sums
 the solvers took before padded slots were left out (`segment_reduce` on
 the unmasked index, every padded slot's ±0 addend clamped onto segment 0).
 
-Each case (marked `cuda`, skipped without a card) must be bit-equal, -0.0
-apart from +0.0, to both and to the CPU's `index_add_` over every slot:
-at every addend width of the call sites (K = 1, 3, 6, 7,
-9, 36, 49), on ragged segments with empty ones between them, with no
-addends, with every slot left out, and at the real shapes (the local BA's
-24 x 2,000 = 48,000 slots over 24 cameras and 4,096 points, ~2,139 valid;
-the global BA's 128 x 2,000 = 256,000 slots over 128 cameras and 32,768
-points, ~19,000 valid). (Both plain sums take the addends as (E, K): on
-the card `segment_reduce` sums 1-D addends, such as the BoW rows' K = 1
-sums, by a tree in another order, so the kernel parts from the 1-D call
-in their last bits; 2-D it sums in index order.) Also: the kernel
-captured in a CUDA graph and replayed on new values equals eager; a launch counts one in `launches`,
-one under capture in `recorded`; the wrapper raises on float64, on a
-non-contiguous tensor and on a device mismatch; the mapping fixture's
-local BA and a padded essential-graph ring through the kernel are
-torch.equal to the same solves through the unmasked index and
+Each case (marked `cuda`, skipped without a card) runs through each of the
+library's three entries: `segsum`, the dispatch the solvers call, and the
+two kernels' own, `segsum_block` (a block a segment, rows staged through a
+ring of tiles in shared memory) and `segsum_rows` (a thread a segment and
+column), whatever the dispatch would pick. Each must be bit-equal, -0.0
+apart from +0.0, to both plain sums and to the CPU's `index_add_` over
+every slot: at every addend width of the call sites (K = 1, 3, 6, 7, 9,
+36, 49), on ragged segments with empty ones between them, with no addends,
+with every slot left out, at the real shapes (the local BA's 24 x 2,000 =
+48,000 slots over 24 cameras and 4,096 points, ~2,139 valid; the global
+BA's 128 x 2,000 = 256,000 slots over 128 cameras and 32,768 points,
+~19,000 valid), on segments that cross the block kernel's ring several
+times, fill exactly one tile or hold nothing, at every K, on one segment
+alone, and with `vals` starting 1 or 2 floats into its buffer (a base
+only 4- or 8-byte aligned; tests/torch_segsum_cases.py builds them all).
+(Both plain sums take the addends as (E, K): on the card `segment_reduce`
+sums 1-D addends, such as the BoW rows' K = 1 sums, by a tree in another
+order, so the kernels part from the 1-D call in their last bits; 2-D it
+sums in index order.) Also: each entry captured in a CUDA graph and
+replayed on new values equals eager; a launch counts one in `launches`,
+one under capture in `recorded`; the dispatch picks the block kernel at
+the camera and vertex sums and the rows kernel at the point sums, and the
+tile rows of tests/torch_segsum_cases.py mirror the source's; the wrapper raises on
+float64, on a non-contiguous tensor and on a device mismatch; the mapping
+fixture's local BA and a padded essential-graph ring through the kernels
+are torch.equal to the same solves through the unmasked index and
 `segment_reduce`, as the solvers ran before.
 
 This file imports no JAX:
@@ -28,9 +38,9 @@ This file imports no JAX:
 """
 
 import chip_smoke
-import numpy as np
 import pytest
 import torch
+import torch_segsum_cases as C
 from torch_mapping_fixture import local_ba_problem
 from torch_ring import padded_pose_graph
 
@@ -39,11 +49,6 @@ from orb_slam_cuda_tpu_torch.solvers import bundle_adjust as ba
 from orb_slam_cuda_tpu_torch.solvers import pose_graph
 
 torch.set_num_threads(2)
-WIDTHS = {1: (), 3: (3,), 6: (6,), 7: (7,), 9: (3, 3), 36: (6, 6), 49: (7, 7)}
-# (cameras or points, observation rows, slots a row, valid slots): the
-# local BA's and the global BA's dense observation grids.
-REAL = {"local_cams": (24, 24, 2000, 2139), "local_points": (4096, 24, 2000, 2139),
-        "global_cams": (128, 128, 2000, 19000), "global_points": (32768, 128, 2000, 19000)}
 
 
 def _card():
@@ -56,63 +61,25 @@ def _bits(t):
     return t.contiguous().view(torch.int32)
 
 
-def _padded(rng, n, e, tail, share=0.3, live=None):
-    """(idx, valid, vals) on the CPU as a solver hands them over: invalid
-    slots clamped onto segment 0 with ±0 addends."""
-    idx = rng.choice(np.arange(n) if live is None else live, size=e)
-    valid = rng.random(e) < share
-    vals = rng.normal(0, 1e3, (e,) + tail).astype(np.float32)
-    sign = np.where(rng.random((e,) + tail) < 0.5, -1.0, 1.0).astype(np.float32)
-    vals = np.where(valid.reshape((e,) + (1,) * len(tail)), vals, np.float32(0.0) * sign)
-    return torch.as_tensor(np.where(valid, idx, 0)), torch.as_tensor(valid), torch.as_tensor(vals)
-
-
-def _real(name, tail, seed=0):
-    """A BA grid's index: rows of slots, each row one camera; the valid
-    slots spread over the rows, each observing a point. The camera sums
-    take the row, the point sums the point."""
-    n, rows, per_row, n_valid = REAL[name]
-    rng = np.random.default_rng(seed)
-    e = rows * per_row
-    valid = np.zeros(e, bool)
-    valid[rng.choice(e, size=n_valid, replace=False)] = True
-    seg = np.repeat(np.arange(rows), per_row) if name.endswith("cams") else rng.integers(0, n, e)
-    vals = rng.normal(0, 1e3, (e,) + tail).astype(np.float32)
-    vals[~valid] = 0.0
-    return n, torch.as_tensor(np.where(valid, seg, 0)), torch.as_tensor(valid), torch.as_tensor(vals)
-
-
-def _case(case):
-    rng = np.random.default_rng(sum(map(ord, case)))
-    if case.startswith("K"):
-        return (53,) + _padded(rng, 53, 3000, WIDTHS[int(case[1:])])
-    if case == "ragged":
-        return (400,) + _padded(rng, 400, 20000, (6,), live=rng.choice(400, 150, replace=False))
-    if case == "no_addends":
-        return (37,) + _padded(rng, 37, 0, (3, 3))
-    if case == "all_invalid":
-        return (37,) + _padded(rng, 37, 5000, (6, 6), share=0.0)
-    name, k = case.rsplit("_K", 1)
-    return _real(name, WIDTHS[int(k)])
-
-
-CASES = ([f"K{k}" for k in WIDTHS] + ["ragged", "no_addends", "all_invalid"]
-         + [f"local_cams_K{k}" for k in (6, 36)] + [f"local_points_K{k}" for k in (3, 9)]
-         + [f"global_cams_K{k}" for k in (6, 36)] + [f"global_points_K{k}" for k in (3, 9)])
+def _sum(entry, seg, vals):
+    """The sum through the dispatch (`segsum.segsum`, as the solvers call
+    it) or one kernel's own entry."""
+    return segsum.segsum(seg, vals) if entry == "segsum" else segsum.launch_entry(entry, seg, vals)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", CASES)
-def test_kernel_bit_equal_to_plain_and_unmasked_index(case):
+@pytest.mark.parametrize("entry", segsum.ENTRIES)
+@pytest.mark.parametrize("case", C.CASES + C.LONG_CASES)
+def test_kernel_bit_equal_to_plain_and_unmasked_index(case, entry):
     dev = _card()
-    n, idx, valid, vals = (x.to(dev) if torch.is_tensor(x) else x for x in _case(case))
+    n, idx, valid, vals = C.case(case, dev)
     seg = segsum.segment_index(n, idx, valid)
     launches = segsum.launches
-    out = segsum.segsum(seg, vals)
-    again = segsum.segsum(seg, vals)
+    out = _sum(entry, seg, vals)
+    again = _sum(entry, seg, vals)
     plain = segsum.segsum_plain(seg, vals)
     parent = segsum.segsum_plain(segsum.segment_index(n, idx), vals)  # the unmasked index
-    cpu = torch.zeros((n,) + vals.shape[1:]).index_add_(0, idx.cpu(), vals.cpu())
+    cpu = C.index_add(n, idx, vals)
     torch.cuda.synchronize()
     assert segsum.launches == launches + 2
     assert out.shape == (n,) + vals.shape[1:] and out.dtype == torch.float32
@@ -123,43 +90,59 @@ def test_kernel_bit_equal_to_plain_and_unmasked_index(case):
 
 
 @pytest.mark.cuda
-def test_kernel_graph_replays_equal_eager():
+def test_rule_and_tile_rows_as_the_source_states():
+    """The dispatch takes the block kernel at the camera sums and the rows
+    kernel at the point sums, the essential graph's vertex sums and the
+    BoW rows; the cases' tile rows mirror the source's at every width."""
+    _card()
+    lib = segsum._load()
+    assert [lib.segsum_tile_rows(k) for k in range(1, 65)] == [
+        C.block_tile_rows(k) if k in C.BLOCK_WIDTHS else 0 for k in range(1, 65)]
+    for n, k in ((24, 36), (24, 6), (24, 1), (128, 36), (512, 6)):
+        assert segsum.kernel_name(n, k) == "segsum_block_kernel", (n, k)
+    for n, k in ((4096, 9), (4096, 3), (32768, 9), (256, 49), (256, 7), (1000, 1), (513, 36), (24, 12)):
+        assert segsum.kernel_name(n, k) == "segsum_rows_kernel", (n, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", segsum.ENTRIES)
+def test_kernel_graph_replays_equal_eager(entry):
     """One launch captured in a CUDA graph, replayed on new values copied
     into its input: each replay equals an eager launch on those values."""
     dev = _card()
-    n, idx, valid, vals = _real("local_cams", (6, 6), seed=1)
+    n, idx, valid, vals = C.real("local_cams", (6, 6), seed=1)
     seg = segsum.segment_index(n, idx.to(dev), valid.to(dev))
     static = vals.to(dev)
-    segsum.segsum(seg, static)  # the library loads outside capture
+    _sum(entry, seg, static)  # the library loads outside capture
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     recorded, launches = segsum.recorded, segsum.launches
     with torch.cuda.graph(graph):
-        captured = segsum.segsum(seg, static)
+        captured = _sum(entry, seg, static)
     assert segsum.recorded == recorded + 1 and segsum.launches == launches
     for seed in (2, 3, 4):
-        new = _real("local_cams", (6, 6), seed=seed)[3].to(dev)
+        new = C.real("local_cams", (6, 6), seed=seed)[3].to(dev)
         static.copy_(new)
         captured.fill_(7.0)
         graph.replay()
-        eager = segsum.segsum(seg, new)
+        eager = _sum(entry, seg, new)
         torch.cuda.synchronize()
         assert torch.equal(_bits(captured), _bits(eager)), "a replay differs from eager"
+        assert torch.equal(_bits(eager), _bits(segsum.segsum_plain(seg, new)))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bad", ["float64", "non_contiguous", "device_mismatch", "rows"])
 def test_kernel_wrapper_raises(bad):
     dev = _card()
-    n, idx, valid, vals = _case("K36")
-    seg = segsum.segment_index(n, idx.to(dev), valid.to(dev))
-    vals = vals.to(dev)
+    n, idx, valid, vals = C.case("K36", dev)
+    seg = segsum.segment_index(n, idx, valid)
     if bad == "float64":
         vals = vals.double()
     elif bad == "non_contiguous":
         vals = vals.transpose(1, 2)
     elif bad == "device_mismatch":
-        seg = segsum.segment_index(n, idx, valid)  # the index on the CPU
+        seg = segsum.segment_index(n, idx.cpu(), valid.cpu())  # the index on the CPU
     else:
         vals = vals[1:]
     launches = segsum.launches

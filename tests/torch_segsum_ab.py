@@ -1,14 +1,21 @@
-"""The segment-sum kernel of this tree against another tree's source, in one
-process on the card: both built from their sources, held bit for bit
-against each other and timed in turns (other, this, this, other) at the
-bundle adjustment's shapes.
+"""The segment-sum kernels of this tree against another tree's source, in
+one process on the card: both built from their sources, held bit for bit
+against each other and timed in turns at the bundle adjustment's shapes.
+
+This tree's source has three entries: `segsum`, which picks a kernel from
+the segment count and K, and the two kernels' own, `segsum_block` and
+`segsum_rows`; the other tree's `segsum` is timed against each, in the
+turns other, segsum, block, rows, rows, block, segsum, other. For each
+call it prints the kernel that this tree's rule picks.
 
 The calls: a local BA's (24 cameras x 2,000 observation slots, 2,139 valid,
 746 of them the new keyframe's) camera sums Hcc (K = 36) and bc (K = 6) and
-point sums Hpp (K = 9 over 4,096 points); a global BA's (128 x 2,000 slots,
-19,260 valid, 732 the longest camera's) Hcc and Hpp (32,768 points). Each
-time is the median device time of one call by CUDA events around 10 calls
-queued behind a long matrix product (warm L2), as chip_smoke.py times the
+point sums Hpp (K = 9 over 4,096 points) and bp (K = 3); a global BA's
+(128 x 2,000 slots, 19,260 valid, 732 the longest camera's) Hcc and Hpp
+(32,768 points); an essential graph's vertex sums Hd (K = 49) over 256
+keyframes, 1,536 valid edge ends among 4,096 slots. Each time is the
+median device time of one call by CUDA events around 10 calls queued
+behind a long matrix product (warm L2), as chip_smoke.py times the
 kernels.
 
     PYTHONPATH=$PWD python tests/torch_segsum_ab.py --other OLD.cu [--out OUT.json]
@@ -37,9 +44,12 @@ CALLS = {  # name: (segments, rows, slots a row, valid, the longest row's valid,
     "local Hcc": (24, 24, 2000, 2139, 746, "cams", (6, 6)),
     "local bc": (24, 24, 2000, 2139, 746, "cams", (6,)),
     "local Hpp": (4096, 24, 2000, 2139, 746, "points", (3, 3)),
+    "local bp": (4096, 24, 2000, 2139, 746, "points", (3,)),
     "global Hcc": (128, 128, 2000, 19260, 732, "cams", (6, 6)),
     "global Hpp": (32768, 128, 2000, 19260, 732, "points", (3, 3)),
+    "essential Hd": (256, 16, 256, 1536, 96, "points", (7, 7)),
 }
+TURNS = ("other", "segsum", "segsum_block", "segsum_rows", "segsum_rows", "segsum_block", "segsum", "other")
 
 
 def problem(name, device, seed=0):
@@ -63,21 +73,23 @@ def problem(name, device, seed=0):
     return index, torch.as_tensor(vals, device=device)
 
 
-def bind(path):
+def bind(path, entries=("segsum",)):
     lib = ctypes.CDLL(path)
     ptr = ctypes.c_void_p
-    lib.segsum.argtypes = [ptr, ptr, ptr, ctypes.c_int64, ctypes.c_int, ptr, ptr]
-    lib.segsum.restype = ctypes.c_int
+    for name in entries:
+        fn = getattr(lib, name)
+        fn.argtypes = [ptr, ptr, ptr, ctypes.c_int64, ctypes.c_int, ptr, ptr]
+        fn.restype = ctypes.c_int
     return lib
 
 
-def launcher(lib, seg, vals):
+def launcher(fn, seg, vals):
     out = torch.empty((seg.n,) + vals.shape[1:], dtype=torch.float32, device=vals.device)
     k = int(np.prod(vals.shape[1:]))
 
     def run():
-        rc = lib.segsum(vals.data_ptr(), seg.order.data_ptr(), seg.offsets.data_ptr(), seg.n, k, out.data_ptr(),
-                        torch.cuda.current_stream().cuda_stream)
+        rc = fn(vals.data_ptr(), seg.order.data_ptr(), seg.offsets.data_ptr(), seg.n, k, out.data_ptr(),
+                torch.cuda.current_stream().cuda_stream)
         if rc:
             raise RuntimeError(f"segsum launch failed: cudaError {rc}")
         return out
@@ -112,28 +124,32 @@ def main() -> int:
         raise SystemExit("torch_segsum_ab: no CUDA device")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    this = bind(segsum.build()[0])
+    this = bind(segsum.build()[0], segsum.ENTRIES)
     other = bind(native_build.build(args.other, "the other segsum kernel", flags=tuple(NVCC_FLAGS),
                                     build_dir=BUILD_DIR, compiler=_nvcc()))
     res = {"card": card, "calls": {}}
     for name in CALLS:
         seg, vals = problem(name, torch.device("cuda"))
-        a, b = launcher(other, seg, vals), launcher(this, seg, vals)
-        equal = torch.equal(a().clone().view(torch.int32), b().clone().view(torch.int32))
-        times = {"other": [], "this": []}
-        for who in ("other", "this", "this", "other"):
-            times[who].append(device_ms(a if who == "other" else b))
-        res["calls"][name] = {"segments": seg.n, "k": int(np.prod(vals.shape[1:])),
-                              "longest_segment": int(seg.lengths.max()), "bit_equal": equal,
-                              "other_ms": times["other"], "this_ms": times["this"]}
-        print(f"{name}: longest segment {int(seg.lengths.max())}, bit-equal {equal}; other {times['other']} ms, "
-              f"this {times['this']} ms", file=sys.stderr, flush=True)
+        k = int(np.prod(vals.shape[1:]))
+        run = {"other": launcher(other.segsum, seg, vals)}
+        run.update({entry: launcher(getattr(this, entry), seg, vals) for entry in segsum.ENTRIES})
+        want = run["other"]().clone().view(torch.int32)
+        equal = {entry: torch.equal(want, run[entry]().clone().view(torch.int32)) for entry in segsum.ENTRIES}
+        times = {who: [] for who in run}
+        for who in TURNS:
+            times[who].append(device_ms(run[who]))
+        res["calls"][name] = {"segments": seg.n, "k": k, "longest_segment": int(seg.lengths.max()),
+                              "rule_picks": segsum.kernel_name(seg.n, k), "bit_equal": equal,
+                              **{f"{who}_ms": t for who, t in times.items()}}
+        print(f"{name}: longest segment {int(seg.lengths.max())}, the rule picks {segsum.kernel_name(seg.n, k)}, "
+              f"bit-equal to the other {equal}; " + ", ".join(f"{who} {t} ms" for who, t in times.items()),
+              file=sys.stderr, flush=True)
     line = json.dumps(res)
     if args.out:
         with open(args.out, "w") as f:
             f.write(line + "\n")
     print(line)
-    return 0 if all(c["bit_equal"] for c in res["calls"].values()) else 1
+    return 0 if all(all(c["bit_equal"].values()) for c in res["calls"].values()) else 1
 
 
 if __name__ == "__main__":
