@@ -4,10 +4,10 @@
 Phases, each printing its own lines:
   1. device check: a CUDA device is required; prints the card's name and
      power limit as nvidia-smi reports them;
-  2. build: compiles the four hand-written kernel sources from csrc/ with
+  2. build: compiles the five hand-written kernel sources from csrc/ with
      nvcc, one process each, started together (fast_corners.cu,
-     triangulate_dlt.cu, sim3_ransac.cu and segsum.cu; the second and
-     third include jacobi4.cuh);
+     triangulate_dlt.cu, sim3_ransac.cu, segsum.cu and pose_graph_edges.cu;
+     the second and third include jacobi4.cuh);
   3. kernel against plain: both entry points of the FAST kernel at the 8
      pyramid shapes of a rendered 1241x376 frame, at the 8 of a rendered
      640x480 frame and on uniform noise,
@@ -50,11 +50,11 @@ Phases, each printing its own lines:
      entry's device time warm and cold and as called, the plain version's
      time and device launches, and the bound;
   5b. repeatability: a local BA on the orbit's final map and an
-     essential-graph solve on a 256-keyframe ring with a drifted loop
-     edge, each run twice under programs.eager(), then as a program (the
-     capturing call and two replays of its CUDA graph): all torch.equal;
-     the times of each call show what a capture costs (the System runs
-     the essential-graph solve eagerly: a path closes one or two loops).
+     essential-graph solve (the loop closer's 15 Gauss-Newton steps) on a
+     256-keyframe ring with a drifted loop edge, each run twice under
+     programs.eager(), then as a program (the capturing call and two
+     replays of its CUDA graph): all torch.equal; the times of each call,
+     and the capture's own, show what a capture costs.
      Then the segment-sum kernels (csrc/segsum.cu): both solves again with
      their float sums on torch.segment_reduce over the unmasked index (the
      padded slots' zero addends clamped onto segment 0, as the solvers
@@ -95,7 +95,11 @@ Phases, each printing its own lines:
      on the Sim3 stage: one Sim3 kernel launch a candidate verified, the
      `sim3_ransac` program replayed where two or more were, `sim3_refine`
      captured at a key's second call (none where it ran once, replays
-     where it ran three times or more); prints fps,
+     where it ran three times or more); and on the essential-graph solve:
+     15 edge-linearization launches a loop closed (one a Gauss-Newton
+     step), its `essential_graph` program among the System's programs
+     (`loop_pose_graph` per closure and the program's captures and
+     replays printed, on the stereo path too); prints fps,
      p50/p99, every mapping, loop-closing, global-BA and relocalization call
      with its frame and time, `loop_sim3` per call, the candidates through
      each Sim3 stage and the four Sim3 programs' captures and replays (as
@@ -113,7 +117,20 @@ Phases, each printing its own lines:
      device launch a call (torch.profiler, on the full-width call) runs in
      phase 3, before the vocabulary phase, with the segment sum's (one
      device launch a call at the local BA's shape, of the kernel that the
-     rule picks there);
+     rule picks there) and the edge linearization's (one device launch a
+     call on the padded ring of 5b). Also in phase 3, the essential
+     graph's edge linearization (csrc/pose_graph_edges.cu: every edge's
+     Sim3 residual and both 7x7 forward-mode Jacobians, one launch a
+     Gauss-Newton step) on 5b's 256-keyframe ring (763 edges padded to the
+     loop closer's bucket of 1,024) and on a seeded set of edges whose
+     residuals take every branch of sim3.log: launched twice (torch.equal)
+     and held against its plain version (the float64 chain through
+     torch.func.jvp on the card): r within one float32 ulp or 1e-12, Ji and
+     Jj within 2^-22 of the edge's largest entry, the same branch flags,
+     padded edges zeros; on the ring its device time warm and cold and as
+     called, the plain version's time and the bound (this run's double
+     operations, counted by the source's host build, at the H100's FP64
+     rate, against its bytes);
   6b. parallel: the distributed back end on the loop path's final map.
      (a) its global-BA problem (as the loop closer gathers it) solved by
      bundle_adjust and by distributed_bundle_adjust on a 1-rank NCCL
@@ -172,10 +189,10 @@ summed over all paths: `triangulate_dlt` (the initializer's) and
 `triangulate_gated` (one a triangulation neighbour of every keyframe the
 mapper took; every path whose mapper dispatched a keyframe must have
 launched it), `sim3_ransac` (one a loop candidate verified, on the
-loop and stereo paths) and `segsum` (every float segment sum of the
+loop and stereo paths), `segsum` (every float segment sum of the
 bundle adjustments, the essential graph, the BoW rows and the map's
 statistics; every path whose mapper dispatched a keyframe must have
-launched it). The line
+launched it) and `pose_graph_edges` (15 a loop closed). The line
 before that holds the same numbers for fast_score_pair, the entry point
 the paths do not call. The last line is the device JSON. Any failure
 raises and exits non-zero without them. Every path prints its programs'
@@ -240,6 +257,25 @@ KERNEL_SOURCE = "orb_slam_cuda_tpu_torch/csrc/fast_corners.cu"
 DLT_SOURCE = "orb_slam_cuda_tpu_torch/csrc/triangulate_dlt.cu"
 SIM3_SOURCE = "orb_slam_cuda_tpu_torch/csrc/sim3_ransac.cu"
 SEGSUM_SOURCE = "orb_slam_cuda_tpu_torch/csrc/segsum.cu"
+POSE_GRAPH_SOURCE = "orb_slam_cuda_tpu_torch/csrc/pose_graph_edges.cu"
+# One H100 SXM's FP64 rate outside the tensor cores (NVIDIA's data sheet):
+# the edge-linearization kernel's chain is double.
+PEAK_FP64_OPS_PER_S = 34e12
+# The loop closer's Gauss-Newton steps a solve: one edge-linearization
+# launch each.
+POSE_GRAPH_GN_STEPS = 15
+# The edge-linearization kernel against its plain version (both round one
+# double chain once to float32): r within one float32 ulp of the plain
+# version's or POSE_GRAPH_R_ABS (double cancellation where r ~ 0), Ji and
+# Jj within POSE_GRAPH_J_REL of the edge's largest entry (at least 1), the
+# branch flags equal.
+POSE_GRAPH_R_ABS = 1e-12
+POSE_GRAPH_J_REL = 2.0**-22
+POSE_GRAPH_SEED = 7  # branch_edges' seed
+# The least bytes of the linearization: the vertices' R, t, s (52 B each)
+# read once, each edge's indices, measurement and flag (69 B) read once
+# and its r, Ji, Jj and flags (424 B) written once.
+BYTES_PG_VERTEX, BYTES_PG_EDGE = 52, 69 + 424
 # The least bytes of a segment sum: each valid addend's K floats and its
 # int64 place in the sort order read once, the (n+1) int64 offsets read
 # and the (n, K) sums written once; its operations are one float add an
@@ -457,46 +493,52 @@ def sm_clock_mhz() -> float:
 
 
 def phase_build():
-    """The four kernels' nvcc builds, started together."""
+    """The five kernels' nvcc builds, started together."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from orb_slam_cuda_tpu_torch.ops import dlt_kernel, fast_kernel, segsum, sim3_kernel
+    from orb_slam_cuda_tpu_torch.ops import dlt_kernel, fast_kernel, pose_graph_kernel, segsum, sim3_kernel
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(4) as pool:
-        builds = [pool.submit(k.build) for k in (fast_kernel, dlt_kernel, sim3_kernel, segsum)]
+    kernels = (fast_kernel, dlt_kernel, sim3_kernel, segsum, pose_graph_kernel)
+    with ThreadPoolExecutor(len(kernels)) as pool:
+        builds = [pool.submit(k.build) for k in kernels]
         results = [b.result() for b in builds]
-    for source, (path, seconds) in zip((KERNEL_SOURCE, DLT_SOURCE, SIM3_SOURCE, SEGSUM_SOURCE), results):
+    sources = (KERNEL_SOURCE, DLT_SOURCE, SIM3_SOURCE, SEGSUM_SOURCE, POSE_GRAPH_SOURCE)
+    for source, (path, seconds) in zip(sources, results):
         log(f"build: {source} -> {path} in {seconds:.2f} s")
-    log(f"build: all four in {time.perf_counter() - t0:.2f} s")
+    log(f"build: all five in {time.perf_counter() - t0:.2f} s")
 
 
 def reset_launches():
     """Every kernel's launch count to 0, just before a path is driven."""
-    from orb_slam_cuda_tpu_torch.ops import dlt_kernel, fast_kernel, segsum, sim3_kernel
+    from orb_slam_cuda_tpu_torch.ops import dlt_kernel, fast_kernel, pose_graph_kernel, segsum, sim3_kernel
 
     fast_kernel.launches = 0
     dlt_kernel.launches = 0
     dlt_kernel.gated.launches = 0
     sim3_kernel.launches = 0
     segsum.launches = 0
+    pose_graph_kernel.launches = 0
 
 
-# The DLT, Sim3 and segment-sum kernels' launches of each path's run, read
-# just after it is driven: {"dlt": the initializer's entry, "gated": the
-# mapper's, "sim3": the loop closer's RANSAC, "segsum": the float segment
-# sums}.
+# The DLT, Sim3, segment-sum and edge-linearization kernels' launches of
+# each path's run, read just after it is driven: {"dlt": the initializer's
+# entry, "gated": the mapper's, "sim3": the loop closer's RANSAC, "segsum":
+# the float segment sums, "pose_graph": the essential graph's Gauss-Newton
+# steps}.
 PATH_LAUNCHES = {}
-PATH_KERNELS = ("dlt", "gated", "sim3", "segsum")
+PATH_KERNELS = ("dlt", "gated", "sim3", "segsum", "pose_graph")
 
 
 def note_launches(name: str) -> dict:
-    """Record the DLT entries', the Sim3 kernel's and the segment-sum
-    kernel's launches of path `name` since reset_launches()."""
-    from orb_slam_cuda_tpu_torch.ops import dlt_kernel, segsum, sim3_kernel
+    """Record the DLT entries', the Sim3 kernel's, the segment-sum kernel's
+    and the edge-linearization kernel's launches of path `name` since
+    reset_launches()."""
+    from orb_slam_cuda_tpu_torch.ops import dlt_kernel, pose_graph_kernel, segsum, sim3_kernel
 
     PATH_LAUNCHES[name] = n = {"dlt": dlt_kernel.launches, "gated": dlt_kernel.gated.launches,
-                               "sim3": sim3_kernel.launches, "segsum": segsum.launches}
+                               "sim3": sim3_kernel.launches, "segsum": segsum.launches,
+                               "pose_graph": pose_graph_kernel.launches}
     return n
 
 
@@ -513,7 +555,7 @@ def kernel_gates(name: str, slam) -> dict:
     wherever it verified two or more; `sim3_refine` not captured where it
     ran once and replayed where it ran three times or more."""
     n, dispatches = note_launches(name), mapping_dispatches(slam)
-    log(f"{name}: dlt, sim3 and segsum launches {n} ({dispatches} keyframes dispatched to the mapper)")
+    log(f"{name}: dlt, sim3, segsum and pose_graph launches {n} ({dispatches} keyframes dispatched to the mapper)")
     gates = {}
     if slam.device.type == "cuda" and dispatches:
         gates[f"gated dlt launches > 0 ({dispatches} keyframes dispatched)"] = n["gated"] > 0
@@ -522,7 +564,18 @@ def kernel_gates(name: str, slam) -> dict:
     if lc is None:
         return gates
     ms = [ns / 1e6 for _, stage, _, ns in slam.timer.rows["timesMapping.csv"] if stage == "loop_sim3"]
-    stats = {p.name: p.stats() for p in lc.programs[2:]}
+    stats = {p.name: p.stats() for p in (lc._match_fn, lc._ransac_fn, lc._refine_fn, lc._gate_fn)}
+    pg = [ns / 1e6 for _, stage, _, ns in slam.timer.rows["timesMapping.csv"] if stage == "loop_pose_graph"]
+    eg, keys = lc._pose_graph_fn.stats(), len(lc._pose_graph_fn._calls) + len(lc._pose_graph_fn._graphs)
+    log(f"{name}: loop_pose_graph per closure " + ", ".join(f"{v:.2f}" for v in pg) + f" ms ({lc.n_loops_closed} "
+        f"closures); the essential_graph program (capture_at {lc._pose_graph_fn.capture_at}): {keys} keys, "
+        f"{eg['captures']} captures in {eg['capture_s']:.3f} s, {eg['replays']} replays; pose_graph_edges "
+        f"launches {n['pose_graph']}")
+    if slam.device.type == "cuda":
+        want = POSE_GRAPH_GN_STEPS * lc.n_loops_closed
+        gates[f"pose_graph_edges launches == {POSE_GRAPH_GN_STEPS} x the {lc.n_loops_closed} closures"] = \
+            n["pose_graph"] == want
+        gates["the essential_graph program in program_stats()"] = "essential_graph" in slam.program_stats()
     log(f"{name}: loop_sim3 {sum(ms) / max(len(ms), 1):.2f} ms a call (n={len(ms)}, max "
         f"{max(ms, default=0.0):.2f} ms, total {sum(ms):.1f} ms); Sim3 candidates by stage {lc.sim3_counts}; "
         "Sim3 programs (captures + replays): "
@@ -1377,6 +1430,146 @@ def ring_pose_graph(n: int, device):
     return pose_graph.PoseGraphProblem(*(x.to(device) for x in problem))
 
 
+def padded_ring(device):
+    """`ring_pose_graph`'s ring with its edge list padded as the loop closer
+    pads one (`loop_closing.pad_edges`: 763 edges to 1,024; the padding
+    (0, 0) edges with the identity as their measurement, not valid)."""
+    import torch
+
+    from orb_slam_cuda_tpu_torch.engine import loop_closing
+    from orb_slam_cuda_tpu_torch.geometry import sim3
+
+    p = ring_pose_graph(RING_KEYFRAMES, device)
+    ei, ej, valid = loop_closing.pad_edges(p.edge_i, p.edge_j, RING_KEYFRAMES)
+    eye_R, eye_t, eye_s = sim3.identity((ei.shape[0] - p.edge_i.shape[0],), device=device)
+    return p._replace(edge_i=ei, edge_j=ej, meas_R=torch.cat([p.meas_R, eye_R]), meas_t=torch.cat([p.meas_t, eye_t]),
+                      meas_s=torch.cat([p.meas_s, eye_s]), edge_valid=valid)
+
+
+def pose_graph_args(p):
+    """The edge-linearization kernel's arguments for a PoseGraphProblem at
+    its vertices' poses, as optimize_pose_graph's first step makes them."""
+    return (p.vert_R.contiguous(), p.vert_t.contiguous(), p.vert_s.contiguous(), p.edge_i.long().contiguous(),
+            p.edge_j.long().contiguous(), p.meas_R.contiguous(), p.meas_t.contiguous(), p.meas_s.contiguous(),
+            p.edge_valid.bool().contiguous())
+
+
+def pose_graph_against_plain(out, want, flags_plain, valid) -> dict:
+    """The kernel's (r, Ji, Jj, flags) against its plain version's (r, Ji,
+    Jj) and `branch_flags_plain`: the errors, and the gates (POSE_GRAPH_*
+    tolerances; padded edges zeros; everything finite)."""
+    import torch
+
+    r, Ji, Jj, flags = out
+    pr, pJi, pJj = want
+    ulp = torch.abs(torch.nextafter(pr, torch.full_like(pr, float("inf"))) - pr)
+    r_err = torch.abs(r - pr)
+    j_rel = max(float((torch.abs(a - b) / torch.clamp(b.abs().amax(dim=(1, 2), keepdim=True), min=1.0)).max())
+                for a, b in ((Ji, pJi), (Jj, pJj)))
+    pad = ~valid
+    return {
+        "max_abs_err": max(_max_abs(a, b) for a, b in zip((r, Ji, Jj), want)),
+        "r_max_ulps": float((r_err / ulp).max()), "j_max_rel": j_rel,
+        "flags_parted": int((flags != flags_plain).sum()),
+        "gates": {
+            f"r within one float32 ulp or {POSE_GRAPH_R_ABS}":
+                bool((r_err <= torch.clamp(ulp, min=POSE_GRAPH_R_ABS)).all()),
+            f"Ji, Jj within {POSE_GRAPH_J_REL:.3g} of the edge's largest entry": j_rel <= POSE_GRAPH_J_REL,
+            "branch flags equal": torch.equal(flags, flags_plain),
+            "padded edges zeros": not (r[pad].any() or Ji[pad].any() or Jj[pad].any() or flags[pad].any()),
+            "finite": all(bool(torch.isfinite(x).all()) for x in (r, Ji, Jj)),
+        },
+    }
+
+
+def phase_pose_graph_launches() -> int:
+    """The edge linearization's device launches a call (torch.profiler over
+    host and device) on the padded ring, gated on one, the kernel. Before
+    the vocabulary phase, as phase_sim3_launches."""
+    from orb_slam_cuda_tpu_torch.ops import pose_graph_kernel
+
+    launches0 = pose_graph_kernel.launches
+    args = pose_graph_args(padded_ring("cuda"))
+    names = device_event_names(lambda: pose_graph_kernel.launch(*args))
+    pose_graph_kernel.launches = launches0  # the profile's launches are not a path's
+    log(f"pose_graph_edges device launches a call (torch.profiler): {len(names)} {names}")
+    check_gates("pose_graph_edges kernel", {"one device launch a linearization":
+                                            len(names) == 1 and "pose_graph_edges_kernel" in names[0]})
+    return len(names)
+
+
+def phase_pose_graph_kernel(device_launches: int) -> dict:
+    """The essential graph's edge linearization (csrc/pose_graph_edges.cu)
+    on phase 5b's ring at full width (256 keyframes, 763 edges padded to
+    the loop closer's bucket of 1,024) and on `branch_edges(POSE_GRAPH_SEED)`
+    (residuals through every branch of sim3.log): on each, launched twice
+    (torch.equal) and held against its plain version (the float64 chain
+    through torch.func.jvp on the card) and `branch_flags_plain`, gated
+    (`pose_graph_against_plain`); on the ring its device time warm and cold
+    and as called, the plain version's time and the bound: the larger of
+    the double operations the function needs on this run's edges (each
+    edge's primal chain once and each direction's tangent chain, counted by
+    the source's host build, `pose_graph_kernel.edge_ops`) at
+    PEAK_FP64_OPS_PER_S and its bytes at PEAK_BYTES_PER_S. Library call: none (no one PyTorch call
+    linearizes a Sim3 residual). Returns the kernel table's row (without
+    `launches`)."""
+    import torch
+
+    from orb_slam_cuda_tpu_torch.ops import pose_graph_kernel as pk
+
+    launches0 = pk.launches
+    calls = {}
+    for label, args in (("the padded ring", pose_graph_args(padded_ring("cuda"))),
+                        ("the branch edges", pk.branch_edges(POSE_GRAPH_SEED, "cuda"))):
+        out, again = pk.launch(*args), pk.launch(*args)
+        rep = pose_graph_against_plain(out, pk.linearize_plain(*args), pk.branch_flags_plain(*args), args[-1])
+        torch.cuda.synchronize()
+        rep["gates"]["two launches torch.equal"] = all(torch.equal(a, b) for a, b in zip(out, again))
+        k, e, n_valid = args[0].shape[0], args[3].shape[0], int(args[-1].sum())
+        flags = out[3][args[-1]]
+        branches = {name: int(((flags & bit) != 0).sum()) for name, bit in (
+            ("log_small", pk.FLAG_LOG_SMALL), ("log_near_pi", pk.FLAG_LOG_NEAR_PI),
+            ("cos_clamped", pk.FLAG_COS_CLAMPED), ("sigma_zero", pk.FLAG_SIGMA_ZERO),
+            ("theta_zero", pk.FLAG_THETA_ZERO))}
+        log(f"pose_graph_edges on {label}: K = {k}, {e} edges, {n_valid} valid; edges by branch {branches}; against "
+            f"the plain version: r {rep['r_max_ulps']:.2f} float32 ulps at most, Ji and Jj {rep['j_max_rel']:.3e} of "
+            f"the edge's largest entry, max abs {rep['max_abs_err']:.3e}, flags parted on {rep['flags_parted']}")
+        check_gates(f"pose_graph_edges kernel, {label}", rep["gates"])
+        calls[label] = dict(args=args, rep=rep, edges=e, valid=n_valid, vertices=k, branches=branches)
+    ring = calls["the padded ring"]
+    args = ring["args"]
+    flush = torch.empty(128 * 1024 * 1024 // 4, device="cuda")  # 128 MB > the 50 MB L2
+    warm = device_median_ms(lambda: pk.launch(*args), inner=10)
+    cold = device_median_ms(lambda: pk.launch(*args), before=flush.zero_)
+    called = cuda_median_ms(lambda: pk.linearize(*args))
+    plain_ms = cuda_median_ms(lambda: pk.linearize_plain(*args), reps=5, warmup=1)
+    pk.launches = launches0  # these launches are not a path's
+    t0 = time.perf_counter()
+    primal, tangent = pk.edge_ops(*args)
+    ops_s = time.perf_counter() - t0
+    ops = int(primal.sum() + tangent.sum())
+    nbytes = ring["vertices"] * BYTES_PG_VERTEX + ring["edges"] * BYTES_PG_EDGE
+    by_ops, by_bytes = ops / PEAK_FP64_OPS_PER_S * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    bound_ms, bound_by = max(by_ops, by_bytes), ("operations" if by_ops >= by_bytes else "bytes")
+    valid = args[-1].cpu()
+    log(f"pose_graph_edges per call on the padded ring: device {warm:.4f} ms warm (10 calls a pair of events), "
+        f"{cold:.4f} ms cold L2, as called {called:.4f} ms; plain version {plain_ms:.2f} ms as called; bound "
+        f"{bound_ms:.6f} ms by {bound_by} ({ops} double operations: the primal chains {int(primal.sum())}, "
+        f"{int(primal[valid].min())}-{int(primal[valid].max())} an edge, the tangent chains {int(tangent.sum())}, "
+        f"{int(tangent[valid].min())}-{int(tangent[valid].max())} a direction, counted by the host build in "
+        f"{ops_s:.1f} s: {by_ops:.6f} ms at {PEAK_FP64_OPS_PER_S / 1e12:.0f} "
+        f"TFLOP/s; {nbytes} bytes: {by_bytes:.6f} ms); share {bound_ms / warm:.4f} warm; library call: none (no one "
+        "PyTorch call linearizes a Sim3 residual)")
+    return {"name": "pose_graph_edges", "route": "cuda", "source": POSE_GRAPH_SOURCE,
+            "replaces": "orb_slam_cuda_tpu/solvers/pose_graph.py:88",
+            "max_abs_err": max(c["rep"]["max_abs_err"] for c in calls.values()), "ms": warm, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None, "cold_l2_ms": cold,
+            "as_called_ms": called, "device_launches_a_call": device_launches, "edges": ring["edges"],
+            "valid_edges": ring["valid"], "double_ops": ops, "primal_ops": int(primal.sum()), "bytes": nbytes,
+            "checks": {label: dict(c["rep"], edges=c["edges"], valid=c["valid"], branches=c["branches"])
+                       for label, c in calls.items()}}
+
+
 # The segment-sum kernel's calls timed in phases 5b and 6b (d), by name.
 SEGSUM_CALLS = {}
 
@@ -1550,7 +1743,7 @@ def segsum_row(calls: dict, launches: int, device_launches: int) -> dict:
 def phase_repeatability(slam):
     """One local BA (the last keyframe's window of the orbit's final map,
     round 2's iterations) and one essential-graph solve (a drifted ring of
-    RING_KEYFRAMES, 5 Gauss-Newton steps of the loop closer's 15), each run
+    RING_KEYFRAMES, the loop closer's 15 Gauss-Newton steps), each run
     twice eagerly (programs.eager()) and then as a program: its first call
     (eager, then the capture) and two replays of the graph. All four
     results must be torch.equal. Then each solved eagerly once more with
@@ -1570,7 +1763,8 @@ def phase_repeatability(slam):
     graph = ring_pose_graph(RING_KEYFRAMES, slam.device)
     runs, unmasked = {}, {}
     for name, fn, arg in (("local BA", lambda p: ba.bundle_adjust(p, slam.cam, lm_iters=10, cg_iters=15), problem),
-                          ("essential graph", lambda g: pose_graph.optimize_pose_graph(g, gn_iters=5, cg_iters=30),
+                          ("essential graph",
+                           lambda g: pose_graph.optimize_pose_graph(g, gn_iters=POSE_GRAPH_GN_STEPS, cg_iters=30),
                            graph)):
         program = programs.Program(fn, f"repeatability {name}")
         ms, outs = [], []
@@ -1584,7 +1778,8 @@ def phase_repeatability(slam):
         replayed = program.stats()["replays"] == 2
         runs[name] = same and replayed
         log(f"repeatability, {name}: two eager solves, the program's capture and two replays on the same inputs "
-            f"{'torch.equal' if same else 'DIFFER'} (replays {program.stats()['replays']}); " + ", ".join(ms))
+            f"{'torch.equal' if same else 'DIFFER'} (replays {program.stats()['replays']}); " + ", ".join(ms)
+            + f" (the capture alone {program.stats()['capture_s'] * 1e3:.2f} ms)")
         t0 = time.perf_counter()
         with programs.eager(), unmasked_plain_sums():
             old = fn(arg)
@@ -2465,6 +2660,7 @@ def main() -> int:
     timed("kernels", phase_extract_launches, frames[0])
     sim3_device_launches = timed("kernels", phase_sim3_launches)
     segsum_device_launches = timed("kernels", phase_segsum_launches)
+    pose_graph_row = timed("kernels", phase_pose_graph_kernel, timed("kernels", phase_pose_graph_launches))
     vocab = timed("vocabulary", phase_vocabulary)
     launches, orbit_slam = timed("orbit path", phase_main_path, cam, poses, frames, vocab=vocab)
     dlt_row, gated_row = timed("kernels", phase_dlt_kernel, orbit_slam)
@@ -2494,11 +2690,12 @@ def main() -> int:
     # above, but no path calls it: its row stands apart from the main
     # path's kernel table.
     print(json.dumps({"entry_points_off_the_main_path": [dict(pair_row, launches=0)]}), flush=True)
-    log(f"dlt, sim3 and segsum launches by path: {PATH_LAUNCHES}")
+    log(f"dlt, sim3, segsum and pose_graph launches by path: {PATH_LAUNCHES}")
     total = {k: sum(n.get(k, 0) for n in PATH_LAUNCHES.values()) for k in PATH_KERNELS}
     print(json.dumps({"kernels": [dict(pyramid_row, launches=launches), dict(dlt_row, launches=total["dlt"]),
                                   dict(gated_row, launches=total["gated"]), dict(sim3_row, launches=total["sim3"]),
-                                  segsum_row(SEGSUM_CALLS, total["segsum"], segsum_device_launches)]}),
+                                  segsum_row(SEGSUM_CALLS, total["segsum"], segsum_device_launches),
+                                  dict(pose_graph_row, launches=total["pose_graph"])]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -39,6 +39,16 @@ MIN_SIM3_INLIERS = 20
 MIN_OPT_INLIERS = 20
 MIN_TOTAL_MATCHES = 40
 COVIS_EDGE_MIN_WEIGHT = 100
+# The essential graph's edge count is padded to a power of two from this
+# up: the key of its solve's program.
+EDGE_BUCKET_MIN = 64
+# The solve's program captures a key at its third call. On the 256-keyframe
+# ring (763 edges, 15 steps; NVIDIA H100 80GB HBM3, tests/torch_pose_graph_
+# profile.py) an eager solve takes 0.60-0.66 s, a capture 1.33-1.48 s more
+# and a replay 0.04 s: a capture pays back after ~2.5 replays, so a key is
+# captured once two eager calls have cost about what its capture costs (a
+# path closes one or two loops, often on different keys).
+ESSENTIAL_GRAPH_CAPTURE_AT = 3
 
 
 class GBAPending:
@@ -286,15 +296,20 @@ def loop_points_projection_gate(state: MapState, kf_cur: int, cand: int, R, t, s
     return torch.sum(point_match >= 0), point_match
 
 
-def essential_graph_solve(state: MapState, pose_before, ei, ej, loop_pos, S_loop, cand):
+def essential_graph_solve(state: MapState, pose_before, ei, ej, loop_pos, S_loop, cand, edge_valid=None):
     """The essential graph's Sim3 pose graph: vertices start at the current
     poses, measurements come from the pre-correction poses `pose_before`,
     the edge at `loop_pos` (a 0-d tensor) takes the loop's `S_loop`, `cand`
-    (a slot tensor) is held fixed with the invalid keyframes. Points
-    follow their reference keyframe. Reads nothing back. Returns (kf_pose,
-    mp_xyz)."""
+    (a slot tensor) is held fixed with the invalid keyframes. `edge_valid`
+    (default all) marks the real edges of a padded list: the padded ones
+    get the identity as their measurement and leave the solve's bits as
+    they are. Points follow their reference keyframe. Reads nothing back
+    (the loop closer runs it as the program `essential_graph`). Returns
+    (kf_pose, mp_xyz)."""
     K = state.kf_valid.shape[0]
     dev = state.device
+    if edge_valid is None:
+        edge_valid = torch.ones(ei.shape, dtype=torch.bool, device=dev)
     ones_k = torch.ones((K,), dtype=torch.float32, device=dev)
     Rm, tm = pose_before[:, :3, :3], pose_before[:, :3, 3]
     mR, mt, ms = pose_graph.relative_sim3((Rm[ei], tm[ei], ones_k[ei]), (Rm[ej], tm[ej], ones_k[ej]))
@@ -302,10 +317,14 @@ def essential_graph_solve(state: MapState, pose_before, ei, ej, loop_pos, S_loop
     mR = torch.where(at[:, None, None], S_loop[0], mR)
     mt = torch.where(at[:, None], S_loop[1], mt)
     ms = torch.where(at, S_loop[2], ms)
+    eye_R, eye_t, eye_s = sim3.identity(dtype=torch.float32, device=dev)
+    mR = torch.where(edge_valid[:, None, None], mR, eye_R)
+    mt = torch.where(edge_valid[:, None], mt, eye_t)
+    ms = torch.where(edge_valid, ms, eye_s)
     problem = pose_graph.PoseGraphProblem(
         vert_R=state.kf_pose[:, :3, :3], vert_t=state.kf_pose[:, :3, 3], vert_s=ones_k,
         vert_fixed=slot_mask(cand, K, dev) | ~state.kf_valid, edge_i=ei, edge_j=ej,
-        meas_R=mR, meas_t=mt, meas_s=ms, edge_valid=torch.ones(ei.shape, dtype=torch.bool, device=dev),
+        meas_R=mR, meas_t=mt, meas_s=ms, edge_valid=edge_valid,
     )
     R_opt, t_opt, s_opt = pose_graph.optimize_pose_graph(problem, gn_iters=15, cg_iters=30)
 
@@ -348,6 +367,18 @@ def essential_graph_edges(kf_valid, covis_pre, kf_order, loop_edges, loop_pair):
     return edges // K, edges % K
 
 
+def pad_edges(ei, ej, K: int):
+    """The edge list padded with (0, 0) edges to its program's bucket, the
+    smallest power of two >= E from EDGE_BUCKET_MIN up: (ei, ej, valid),
+    valid False on the padding."""
+    E = ei.shape[0]
+    most = 1 << max(0, K * (K - 1) // 2 - 1).bit_length()  # a power of two >= K(K-1)/2, the most edges
+    bucket = pow2_bucket(E, EDGE_BUCKET_MIN, max(EDGE_BUCKET_MIN, most))
+    pad = torch.zeros((bucket - E,), dtype=ei.dtype, device=ei.device)
+    valid = torch.arange(bucket, device=ei.device) < E
+    return torch.cat([ei, pad]), torch.cat([ej, pad]), valid
+
+
 class LoopCloser:
     """DetectLoop -> ComputeSim3 -> CorrectLoop -> global BA at keyframe
     rate. `sampler(site, seed, valid)` gives the Sim3 RANSAC minimal sets,
@@ -384,9 +415,7 @@ class LoopCloser:
         self.gba_requested = False
         self.timer = StageTimer(enabled=False)
         # Device programs (engine/programs.py): the per-keyframe detection
-        # and a global-BA chunk without a mesh. The essential-graph solve
-        # runs eagerly: a path closes a loop once or twice, and capturing
-        # the solve takes several times as long as running it.
+        # and a global-BA chunk without a mesh.
         self._detect_fn = programs.Program(self._detect_program, "loop_detect")
         self._chunk_fn = programs.Program(self._chunk_program, "gba_chunk")
         # The Sim3 stage of a candidate, one program a host decision: the BoW
@@ -399,8 +428,13 @@ class LoopCloser:
         self._ransac_fn = programs.Program(self._ransac_program, "sim3_ransac")
         self._refine_fn = programs.Program(self._refine_program, "sim3_refine", capture_at=2)
         self._gate_fn = programs.Program(self._gate_program, "loop_gate")
+        # The essential-graph solve and the point update after it, as the JAX
+        # package jits optimize_pose_graph, keyed on the map's capacity and
+        # the edge count's bucket (`pad_edges`).
+        self._pose_graph_fn = programs.Program(essential_graph_solve, "essential_graph",
+                                               capture_at=ESSENTIAL_GRAPH_CAPTURE_AT)
         self.programs = (self._detect_fn, self._chunk_fn, self._match_fn, self._ransac_fn, self._refine_fn,
-                         self._gate_fn)
+                         self._gate_fn, self._pose_graph_fn)
         # Candidates through each stage of _compute_sim3: `match` (every
         # candidate), `ransac` (enough pairs), `refine` (RANSAC ok), `gate`
         # (refined inliers enough), `accepted`.
@@ -654,11 +688,12 @@ class LoopCloser:
         loop_pair = (min(kf_slot, cand), max(kf_slot, cand))
         ei, ej = essential_graph_edges(state.kf_valid, covis_pre, kf_order, self.loop_edges, loop_pair)
         loop_pos = torch.searchsorted(ei * K + ej, loop_pair[0] * K + loop_pair[1])
+        ei, ej, valid = pad_edges(ei, ej, K)
         # S_cm maps cand -> current: the measurement S_ji when i = cand.
         S_loop = S_cm if loop_pair[0] == cand else sim3.inverse(S_cm)
-        kf_pose, mp_xyz = essential_graph_solve(
+        kf_pose, mp_xyz = self._pose_graph_fn(
             state, pose_before, ei, ej, loop_pos, tuple(S_loop),
-            torch.full((), int(cand), dtype=torch.int64, device=dev))
+            torch.full((), int(cand), dtype=torch.int64, device=dev), valid)
         return state._replace(kf_pose=kf_pose, mp_xyz=mp_xyz)
 
     # ------------------------------------------------------------------

@@ -3,11 +3,15 @@ orb_slam_cuda_tpu/solvers/pose_graph.py).
 
 Per-edge residual r = log(S_ji o S_i o S_j^-1) with Jacobians from
 forward-mode derivatives over the two 7-dim tangents, all edges at once
-(`sim3.tangent_jacobian`, in float64, rounded to float32), then Gauss-Newton steps solved by block-Jacobi
-preconditioned CG over segment sums of the edge list. The sums go through
-`ops/segsum.py` (each edge end sorted once per solve, padded edges left
-out, each segment added in edge order), so a solve gives the same bits
-from run to run on CUDA.
+(`ops/pose_graph_kernel.py::linearize`: one launch of the hand-written
+kernel on the card, the float64 chain through `torch.func.jvp` on the CPU,
+each rounded once to float32), then Gauss-Newton steps solved by
+block-Jacobi preconditioned CG over segment sums of the edge list. The sums
+go through `ops/segsum.py` (each edge end sorted once per solve, padded
+edges left out, each segment added in edge order), so a solve gives the
+same bits from run to run on CUDA. Nothing depends on the edge count but
+the edges' own rows: padded edges (`edge_valid` False) leave a solve's
+bits as they are.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ from typing import NamedTuple
 import torch
 
 from ..geometry import sim3
+from ..ops import pose_graph_kernel
 from ..ops.segsum import segment_index, segsum
 
 
@@ -41,17 +46,9 @@ def relative_sim3(Si, Sj):
     return sim3.compose(Sj, sim3.inverse(Si))
 
 
-def _edge_residual(xi_i, xi_j, SiR, Sit, Sis, SjR, Sjt, Sjs, MR, Mt, Ms):
-    """r = log(S_ji o (exp(xi_i) o S_i) o (exp(xi_j) o S_j)^-1) in R^7."""
-    Si_u = sim3.compose(sim3.exp(xi_i), (SiR, Sit, Sis))
-    Sj_u = sim3.compose(sim3.exp(xi_j), (SjR, Sjt, Sjs))
-    return sim3.log(sim3.compose((MR, Mt, Ms), sim3.compose(Si_u, sim3.inverse(Sj_u))))
-
-
 def optimize_pose_graph(problem: PoseGraphProblem, gn_iters: int = 20, cg_iters: int = 30):
     """Returns the optimized (R (K,3,3), t (K,3), s (K,))."""
     K = problem.vert_R.shape[0]
-    E = problem.edge_i.shape[0]
     dev = problem.vert_R.device
     ei = torch.clamp(problem.edge_i, min=0).long()
     ej = torch.clamp(problem.edge_j, min=0).long()
@@ -59,20 +56,16 @@ def optimize_pose_graph(problem: PoseGraphProblem, gn_iters: int = 20, cg_iters:
     seg_j = segment_index(K, ej, valid=problem.edge_valid)
     free = ~problem.vert_fixed
     w_e = problem.edge_valid.to(torch.float32)
-    meas = (problem.meas_R, problem.meas_t, problem.meas_s)
+    meas = tuple(m.contiguous() for m in (problem.meas_R, problem.meas_t, problem.meas_s))
+    valid = problem.edge_valid.bool().contiguous()
     eye7 = torch.eye(7, dtype=torch.float32, device=dev)
 
     def safe(x):
         return torch.where(torch.abs(x) < 1e-12, torch.full_like(x, 1e-12), x)
 
-    R, t, s = problem.vert_R, problem.vert_t, problem.vert_s
+    R, t, s = (v.contiguous() for v in (problem.vert_R, problem.vert_t, problem.vert_s))
     for _ in range(gn_iters):
-        zeros = torch.zeros((E, 7), dtype=torch.float32, device=dev)
-        args = (zeros, zeros, R[ei], t[ei], s[ei], R[ej], t[ej], s[ej]) + meas
-        r = _edge_residual(*args)
-        a64 = tuple(a.double() for a in args[2:])
-        Ji = sim3.tangent_jacobian(lambda x: _edge_residual(x, zeros.double(), *a64), zeros).float()
-        Jj = sim3.tangent_jacobian(lambda x: _edge_residual(zeros.double(), x, *a64), zeros).float()
+        r, Ji, Jj = pose_graph_kernel.linearize(R, t, s, ei, ej, *meas, valid)
         b = (segsum(seg_i, torch.einsum("eki,ek,e->ei", Ji, r, w_e))
              + segsum(seg_j, torch.einsum("eki,ek,e->ei", Jj, r, w_e)))
         Hd = (segsum(seg_i, torch.einsum("eki,ekj,e->eij", Ji, Ji, w_e))
