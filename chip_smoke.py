@@ -4,10 +4,11 @@
 Phases, each printing its own lines:
   1. device check: a CUDA device is required; prints the card's name and
      power limit as nvidia-smi reports them;
-  2. build: compiles the five hand-written kernel sources from csrc/ with
+  2. build: compiles the six hand-written kernel sources from csrc/ with
      nvcc, one process each, started together (fast_corners.cu,
-     triangulate_dlt.cu, sim3_ransac.cu, segsum.cu and pose_graph_edges.cu;
-     the second and third include jacobi4.cuh);
+     triangulate_dlt.cu, sim3_ransac.cu, segsum.cu, pose_graph_edges.cu and
+     sim3_opt_jacobian.cu; the second and third include jacobi4.cuh, the
+     last two sim3_dual.cuh);
   3. kernel against plain: both entry points of the FAST kernel at the 8
      pyramid shapes of a rendered 1241x376 frame, at the 8 of a rendered
      640x480 frame and on uniform noise,
@@ -130,7 +131,18 @@ Phases, each printing its own lines:
      padded edges zeros; on the ring its device time warm and cold and as
      called, the plain version's time and the bound (this run's double
      operations, counted by the source's host build, at the H100's FP64
-     rate, against its bytes);
+     rate, against its bytes). And OptimizeSim3's Jacobian
+     (csrc/sim3_opt_jacobian.cu: both reprojection families' 2x7
+     forward-mode Jacobians of every pair, one launch an LM iteration) at
+     full width (2,000 pairs) and on 64 pairs at 2 rad, each with depths
+     clamped to 1e-6 and behind either camera: launched twice (bit-equal)
+     and held against its plain version (the float64 chain through
+     torch.func.jvp on the card) within 2^-22 of the row's largest entry;
+     one device launch a call; at full width its device time warm and cold
+     and as called, the plain version's time and the bound; after the loop
+     path the same on the Jacobian inputs of its last eager `sim3_refine`,
+     whose numbers lead its row; every path with a loop closer gates 15
+     launches a refinement;
   6b. parallel: the distributed back end on the loop path's final map.
      (a) its global-BA problem (as the loop closer gathers it) solved by
      bundle_adjust and by distributed_bundle_adjust on a 1-rank NCCL
@@ -192,7 +204,8 @@ launched it), `sim3_ransac` (one a loop candidate verified, on the
 loop and stereo paths), `segsum` (every float segment sum of the
 bundle adjustments, the essential graph, the BoW rows and the map's
 statistics; every path whose mapper dispatched a keyframe must have
-launched it) and `pose_graph_edges` (15 a loop closed). The line
+launched it), `pose_graph_edges` (15 a loop closed) and
+`sim3_opt_jacobian` (15 a Sim3 refinement). The line
 before that holds the same numbers for fast_score_pair, the entry point
 the paths do not call. The last line is the device JSON. Any failure
 raises and exits non-zero without them. Every path prints its programs'
@@ -272,6 +285,20 @@ POSE_GRAPH_GN_STEPS = 15
 POSE_GRAPH_R_ABS = 1e-12
 POSE_GRAPH_J_REL = 2.0**-22
 POSE_GRAPH_SEED = 7  # branch_edges' seed
+SIM3_OPT_SOURCE = "orb_slam_cuda_tpu_torch/csrc/sim3_opt_jacobian.cu"
+# OptimizeSim3's LM iterations a refinement (5, then 10): one Jacobian
+# launch each.
+SIM3_OPT_LM_ITERS = 15
+# The Jacobian kernel against its plain version (both round one double
+# chain once to float32): within SIM3_OPT_J_REL of the row's largest entry
+# (a row: J[i], one projection's 2x7 derivative), NaN where it has NaN.
+SIM3_OPT_J_REL = 2.0**-22
+# The full-width call: a KITTI keyframe's 2,000 features as pairs
+# (`sim3_opt_kernel.synthetic_pairs`, its special rows at the head).
+SIM3_OPT_FULL_WIDTH, SIM3_OPT_SEED = 2000, 17
+# The least bytes of the Jacobian: S (52 B) read once, each pair's x1c and
+# x2c (24 B) read once and its J (112 B) written once.
+BYTES_SIM3_OPT_POSE, BYTES_SIM3_OPT_PAIR = 52, 24 + 112
 # The least bytes of the linearization: the vertices' R, t, s (52 B each)
 # read once, each edge's indices, measurement and flag (69 B) read once
 # and its r, Ji, Jj and flags (424 B) written once.
@@ -493,25 +520,27 @@ def sm_clock_mhz() -> float:
 
 
 def phase_build():
-    """The five kernels' nvcc builds, started together."""
+    """The six kernels' nvcc builds, started together."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from orb_slam_cuda_tpu_torch.ops import dlt_kernel, fast_kernel, pose_graph_kernel, segsum, sim3_kernel
+    from orb_slam_cuda_tpu_torch.ops import (dlt_kernel, fast_kernel, pose_graph_kernel, segsum, sim3_kernel,
+                                             sim3_opt_kernel)
 
     t0 = time.perf_counter()
-    kernels = (fast_kernel, dlt_kernel, sim3_kernel, segsum, pose_graph_kernel)
+    kernels = (fast_kernel, dlt_kernel, sim3_kernel, segsum, pose_graph_kernel, sim3_opt_kernel)
     with ThreadPoolExecutor(len(kernels)) as pool:
         builds = [pool.submit(k.build) for k in kernels]
         results = [b.result() for b in builds]
-    sources = (KERNEL_SOURCE, DLT_SOURCE, SIM3_SOURCE, SEGSUM_SOURCE, POSE_GRAPH_SOURCE)
+    sources = (KERNEL_SOURCE, DLT_SOURCE, SIM3_SOURCE, SEGSUM_SOURCE, POSE_GRAPH_SOURCE, SIM3_OPT_SOURCE)
     for source, (path, seconds) in zip(sources, results):
         log(f"build: {source} -> {path} in {seconds:.2f} s")
-    log(f"build: all five in {time.perf_counter() - t0:.2f} s")
+    log(f"build: all six in {time.perf_counter() - t0:.2f} s")
 
 
 def reset_launches():
     """Every kernel's launch count to 0, just before a path is driven."""
-    from orb_slam_cuda_tpu_torch.ops import dlt_kernel, fast_kernel, pose_graph_kernel, segsum, sim3_kernel
+    from orb_slam_cuda_tpu_torch.ops import (dlt_kernel, fast_kernel, pose_graph_kernel, segsum, sim3_kernel,
+                                             sim3_opt_kernel)
 
     fast_kernel.launches = 0
     dlt_kernel.launches = 0
@@ -519,26 +548,28 @@ def reset_launches():
     sim3_kernel.launches = 0
     segsum.launches = 0
     pose_graph_kernel.launches = 0
+    sim3_opt_kernel.launches = 0
 
 
-# The DLT, Sim3, segment-sum and edge-linearization kernels' launches of
-# each path's run, read just after it is driven: {"dlt": the initializer's
-# entry, "gated": the mapper's, "sim3": the loop closer's RANSAC, "segsum":
-# the float segment sums, "pose_graph": the essential graph's Gauss-Newton
-# steps}.
+# The DLT, Sim3, segment-sum, edge-linearization and OptimizeSim3-Jacobian
+# kernels' launches of each path's run, read just after it is driven:
+# {"dlt": the initializer's entry, "gated": the mapper's, "sim3": the loop
+# closer's RANSAC, "segsum": the float segment sums, "pose_graph": the
+# essential graph's Gauss-Newton steps, "sim3_opt": the Sim3 refinement's
+# LM iterations}.
 PATH_LAUNCHES = {}
-PATH_KERNELS = ("dlt", "gated", "sim3", "segsum", "pose_graph")
+PATH_KERNELS = ("dlt", "gated", "sim3", "segsum", "pose_graph", "sim3_opt")
 
 
 def note_launches(name: str) -> dict:
-    """Record the DLT entries', the Sim3 kernel's, the segment-sum kernel's
-    and the edge-linearization kernel's launches of path `name` since
-    reset_launches()."""
-    from orb_slam_cuda_tpu_torch.ops import dlt_kernel, pose_graph_kernel, segsum, sim3_kernel
+    """Record the DLT entries', the Sim3 kernel's, the segment-sum kernel's,
+    the edge-linearization kernel's and the OptimizeSim3-Jacobian kernel's
+    launches of path `name` since reset_launches()."""
+    from orb_slam_cuda_tpu_torch.ops import dlt_kernel, pose_graph_kernel, segsum, sim3_kernel, sim3_opt_kernel
 
     PATH_LAUNCHES[name] = n = {"dlt": dlt_kernel.launches, "gated": dlt_kernel.gated.launches,
                                "sim3": sim3_kernel.launches, "segsum": segsum.launches,
-                               "pose_graph": pose_graph_kernel.launches}
+                               "pose_graph": pose_graph_kernel.launches, "sim3_opt": sim3_opt_kernel.launches}
     return n
 
 
@@ -555,7 +586,8 @@ def kernel_gates(name: str, slam) -> dict:
     wherever it verified two or more; `sim3_refine` not captured where it
     ran once and replayed where it ran three times or more."""
     n, dispatches = note_launches(name), mapping_dispatches(slam)
-    log(f"{name}: dlt, sim3, segsum and pose_graph launches {n} ({dispatches} keyframes dispatched to the mapper)")
+    log(f"{name}: dlt, sim3, segsum, pose_graph and sim3_opt launches {n} ({dispatches} keyframes dispatched to the "
+        "mapper)")
     gates = {}
     if slam.device.type == "cuda" and dispatches:
         gates[f"gated dlt launches > 0 ({dispatches} keyframes dispatched)"] = n["gated"] > 0
@@ -578,11 +610,14 @@ def kernel_gates(name: str, slam) -> dict:
         gates["the essential_graph program in program_stats()"] = "essential_graph" in slam.program_stats()
     log(f"{name}: loop_sim3 {sum(ms) / max(len(ms), 1):.2f} ms a call (n={len(ms)}, max "
         f"{max(ms, default=0.0):.2f} ms, total {sum(ms):.1f} ms); Sim3 candidates by stage {lc.sim3_counts}; "
-        "Sim3 programs (captures + replays): "
-        + ", ".join(f"{k} {v['captures']} + {v['replays']}" for k, v in stats.items()))
+        "Sim3 programs (captures in s + replays): "
+        + ", ".join(f"{k} {v['captures']} in {v['capture_s']:.3f} + {v['replays']}" for k, v in stats.items())
+        + f"; sim3_opt_jacobian launches {n['sim3_opt']}")
     attempts, refined = lc.sim3_counts["ransac"], lc.sim3_counts["refine"]
     if slam.device.type == "cuda":
         gates[f"sim3 launches == the {attempts} candidates verified"] = n["sim3"] == attempts
+        gates[f"sim3_opt_jacobian launches == {SIM3_OPT_LM_ITERS} x the {refined} refinements"] = \
+            n["sim3_opt"] == SIM3_OPT_LM_ITERS * refined
         if attempts >= 2:
             gates["sim3_ransac replayed"] = stats["sim3_ransac"]["replays"] > 0
         # sim3_refine captures a key at its second call.
@@ -1009,6 +1044,33 @@ def device_event_names(fn) -> list:
     if not names:
         raise AssertionError("torch.profiler recorded no device event")
     return names
+
+
+def bracketed_device_event_names(fn) -> list:
+    """The names of the device events that one call of `fn` puts on the
+    card between two one-element fills, in a profile over host and device.
+    A profile of a lone short call can record no device event at all; the
+    fills around it show whether the window was recorded, and a profile
+    that lost them is taken again, three times at most."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.ones(1, device="cuda")
+            fn()
+            torch.ones(1, device="cuda")
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        names = [e.name for e in events]
+        if len(names) >= 2 and "FillFunctor" in names[0] and "FillFunctor" in names[-1]:
+            return names[1:-1]
+        log(f"torch.profiler lost the window's device events ({names}); profiling again")
+    raise AssertionError("torch.profiler recorded no bracketed device events")
 
 
 def count_device_launches(fn) -> int:
@@ -1570,6 +1632,194 @@ def phase_pose_graph_kernel(device_launches: int) -> dict:
                        for label, c in calls.items()}}
 
 
+def sim3_opt_against_plain(J, want) -> dict:
+    """The Jacobian kernel's J against its plain version's: the largest
+    error of a row (J[i]) over its largest entry, and the gates
+    (SIM3_OPT_J_REL; NaN exactly where the plain version has NaN)."""
+    import torch
+
+    nan = torch.isnan(want)
+    rows = ~nan.flatten(1).any(dim=1)
+    scale = want[rows].abs().amax(dim=(1, 2), keepdim=True)
+    err = torch.abs(J[rows] - want[rows])
+    rel = float((err / torch.clamp(scale, min=1e-30)).max()) if bool(rows.any()) else 0.0
+    return {
+        "max_abs_err": _max_abs(J[rows], want[rows]), "j_max_rel": rel,
+        "bits_parted": int((J[rows] != want[rows]).sum()),
+        "gates": {
+            f"J within {SIM3_OPT_J_REL:.3g} of the row's largest entry": bool((err <= SIM3_OPT_J_REL * scale).all()),
+            "NaN where the plain version's is": torch.equal(torch.isnan(J), nan),
+        },
+    }
+
+
+def sim3_opt_full_width_args(device):
+    """The Jacobian kernel's arguments at full width: 2,000 pairs of
+    `sim3_opt_kernel.synthetic_pairs`, a scaled estimate rotating 0.3 rad."""
+    from orb_slam_cuda_tpu_torch.ops import sim3_opt_kernel
+
+    return sim3_opt_kernel.synthetic_pairs(SIM3_OPT_SEED, SIM3_OPT_FULL_WIDTH, 0.3, 1.2, device)
+
+
+def _sim3_opt_launches_worker(queue):
+    """`bracketed_device_event_names` of one full-width Jacobian call, in a
+    process of its own."""
+    import traceback
+
+    from orb_slam_cuda_tpu_torch.ops import sim3_opt_kernel
+
+    try:
+        args = sim3_opt_full_width_args("cuda")
+        queue.put(bracketed_device_event_names(lambda: sim3_opt_kernel.launch(*args)))
+    except BaseException:
+        queue.put(traceback.format_exc())
+
+
+def phase_sim3_opt_launches() -> int:
+    """The Jacobian kernel's device launches a call (torch.profiler over host
+    and device, the call between two fills) at full width, gated on one,
+    the kernel. Before the vocabulary phase, as phase_sim3_launches, and in
+    a process of its own: in this one, after the launch profiles above, such
+    a profile recorded no device event."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    proc = ctx.Process(target=_sim3_opt_launches_worker, args=(queue,))
+    proc.start()
+    try:
+        names = queue.get(timeout=180)
+    finally:
+        proc.join(timeout=60)
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
+    if isinstance(names, str):
+        raise AssertionError("sim3_opt_jacobian launch profile failed in its process:\n" + names)
+    log(f"sim3_opt_jacobian device launches a call (torch.profiler, own process): {len(names)} {names}")
+    check_gates("sim3_opt_jacobian kernel", {"one device launch a Jacobian":
+                                             len(names) == 1 and "sim3_opt_jacobian_kernel" in names[0]})
+    return len(names)
+
+
+def sim3_opt_check(args, label: str) -> dict:
+    """The Jacobian kernel launched twice on `args` (bit-equal) and held
+    against its plain version (the float64 chain through torch.func.jvp on
+    the card); gated and printed under `label`."""
+    import torch
+
+    from orb_slam_cuda_tpu_torch.ops import sim3_opt_kernel as sk
+
+    launches0 = sk.launches
+    J, again = sk.launch(*args), sk.launch(*args)
+    rep = sim3_opt_against_plain(J, sk.jacobian_plain(*args))
+    torch.cuda.synchronize()
+    sk.launches = launches0  # the comparison's launches are not a path's
+    rep["gates"]["two launches bit-equal"] = torch.equal(J.view(torch.int32), again.view(torch.int32))
+    log(f"sim3_opt_jacobian on {label}: {args[1].shape[0]} pairs; against the plain version: J {rep['j_max_rel']:.3e} "
+        f"of the row's largest entry at most, max abs {rep['max_abs_err']:.3e}, {rep['bits_parted']} entries not "
+        "bit-equal")
+    check_gates(f"sim3_opt_jacobian kernel, {label}", rep["gates"])
+    return rep
+
+
+def sim3_opt_times(args, label: str) -> dict:
+    """The Jacobian kernel's device time on `args` warm and cold and as
+    called, the plain version's, and the bound: the larger of this call's
+    bytes at PEAK_BYTES_PER_S and the double operations the function needs
+    on its inputs (the estimate's inverse once, each pair's primal chain
+    once and each (pair, direction)'s tangent chain, counted by the
+    source's host build, `sim3_opt_kernel.pair_ops`) at PEAK_FP64_OPS_PER_S.
+    Library call: none (no one PyTorch call linearizes a Sim3
+    reprojection)."""
+    import torch
+
+    from orb_slam_cuda_tpu_torch.ops import sim3_opt_kernel as sk
+
+    launches0 = sk.launches
+    flush = torch.empty(128 * 1024 * 1024 // 4, device="cuda")  # 128 MB > the 50 MB L2
+    warm = device_median_ms(lambda: sk.launch(*args), inner=10)
+    cold = device_median_ms(lambda: sk.launch(*args), before=flush.zero_)
+    called = cuda_median_ms(lambda: sk.jacobian(*args))
+    plain_ms = cuda_median_ms(lambda: sk.jacobian_plain(*args), reps=5, warmup=1)
+    sk.launches = launches0  # these launches are not a path's
+    pose, primal, tangent = sk.pair_ops(*args)
+    m = args[1].shape[0]
+    ops = int(pose.sum() + primal.sum() + tangent.sum())
+    nbytes = BYTES_SIM3_OPT_POSE + m * BYTES_SIM3_OPT_PAIR
+    by_ops, by_bytes = ops / PEAK_FP64_OPS_PER_S * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    bound_ms, bound_by = max(by_ops, by_bytes), ("operations" if by_ops >= by_bytes else "bytes")
+    log(f"sim3_opt_jacobian per call on {label} ({m} pairs): device {warm:.4f} ms warm (10 calls a pair of events), "
+        f"{cold:.4f} ms cold L2, as called {called:.4f} ms; plain version {plain_ms:.2f} ms as called; bound "
+        f"{bound_ms:.6f} ms by {bound_by} ({ops} double operations: the estimate's {int(pose[0])} + "
+        f"{int(pose[1:].sum())}, the pairs' primal chains {int(primal.sum())}, their tangent chains "
+        f"{int(tangent.sum())}, counted by the host build: {by_ops:.6f} ms at {PEAK_FP64_OPS_PER_S / 1e12:.0f} "
+        f"TFLOP/s; {nbytes} bytes: {by_bytes:.6f} ms); share {bound_ms / warm:.4f} warm; library call: none (no one "
+        "PyTorch call linearizes a Sim3 reprojection)")
+    return {"pairs": m, "ms": warm, "cold_l2_ms": cold, "as_called_ms": called, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "double_ops": ops, "bytes": nbytes}
+
+
+def phase_sim3_opt_kernel(device_launches: int) -> dict:
+    """OptimizeSim3's Jacobian (csrc/sim3_opt_jacobian.cu) at full width
+    (2,000 pairs) and on 64 pairs of a scaled estimate rotating 2 rad, each
+    with points clamped to depth 1e-6 or behind either camera and zero
+    rows at their head (`sim3_opt_kernel.synthetic_pairs`): on each,
+    launched twice (bit-equal) and held against its plain version; at
+    full width its times and bound (`sim3_opt_times`). Returns the kernel
+    table's row (without `launches`; phase_sim3_opt_real_call adds the loop
+    path's real call)."""
+    from orb_slam_cuda_tpu_torch.ops import sim3_opt_kernel as sk
+
+    full = sim3_opt_full_width_args("cuda")
+    checks = {"the full-width call": sim3_opt_check(full, "the full-width call"),
+              "the special rows": sim3_opt_check(sk.synthetic_pairs(SIM3_OPT_SEED, 64, 2.0, 1.7, "cuda"),
+                                                 "64 pairs at 2 rad, scale 1.7")}
+    times = sim3_opt_times(full, "the full-width call")
+    return {"name": "sim3_opt_jacobian", "route": "cuda", "source": SIM3_OPT_SOURCE,
+            "replaces": "orb_slam_cuda_tpu/solvers/sim3_opt.py:101",
+            "max_abs_err": max(c["max_abs_err"] for c in checks.values()), "library_ms": None,
+            "device_launches_a_call": device_launches, "full_width": times,
+            "checks": checks}
+
+
+def phase_sim3_opt_real_call(row: dict, call) -> dict:
+    """The Jacobian kernel on one real call of the loop path (`call`: the
+    inputs of the last Jacobian of its last eager `sim3_refine`), checked
+    and timed as at full width; the row's times and bound become this
+    call's, the full-width call's stay under `full_width`."""
+    if call is None:
+        raise AssertionError("sim3_opt_jacobian: the loop path made no eager Sim3 refinement")
+    check = sim3_opt_check(call, "the loop path's last eager refinement")
+    real = sim3_opt_times(call, "the loop path's last eager refinement")
+    row = dict(row, **real)
+    row["checks"]["the loop path's real call"] = check
+    row["max_abs_err"] = max(row["max_abs_err"], check["max_abs_err"])
+    return row
+
+
+class JacobianRecorder:
+    """Keeps a copy of the inputs of the last OptimizeSim3 Jacobian computed
+    outside a CUDA-graph capture (an eager `sim3_refine` call's), standing
+    in for `sim3_opt_kernel.jacobian` while a path runs."""
+
+    def __init__(self):
+        from orb_slam_cuda_tpu_torch.ops import sim3_opt_kernel
+
+        self.mod, self.fn, self.last = sim3_opt_kernel, sim3_opt_kernel.jacobian, None
+        sim3_opt_kernel.jacobian = self
+
+    def __call__(self, S, x1c, x2c, cam):
+        import torch
+
+        if not torch.cuda.is_current_stream_capturing():
+            self.last = (tuple(a.clone() for a in S), x1c.clone(), x2c.clone(), cam)
+        return self.fn(S, x1c, x2c, cam)
+
+    def detach(self):
+        self.mod.jacobian = self.fn
+
+
 # The segment-sum kernel's calls timed in phases 5b and 6b (d), by name.
 SEGSUM_CALLS = {}
 
@@ -2011,9 +2261,13 @@ def phase_loop_path(cam, poses, frames, device=None):
 
     slam = build_system(circuit_config(cam, Sensor.MONOCULAR), device)
     recorder = Sim3Recorder(slam.loop_closer)  # keeps one real Sim3 call's inputs for phase_sim3_kernel
-    _, frame_ms, reloc_calls, _, total_s, launches = drive(
-        slam, lambda s, img, t: s.track_monocular(img, t), frames, 0.1)
-    recorder.detach()
+    jacobians = JacobianRecorder()  # and one real Jacobian's for phase_sim3_opt_real_call
+    try:
+        _, frame_ms, reloc_calls, _, total_s, launches = drive(
+            slam, lambda s, img, t: s.track_monocular(img, t), frames, 0.1)
+    finally:
+        recorder.detach()
+        jacobians.detach()
     dlt = kernel_gates("loop path", slam)
     ate, extent, _, off_device, program_calls = summarize("loop path", slam, poses, 0.1, frame_ms, reloc_calls,
                                                           total_s, launches, with_scale=True)
@@ -2037,7 +2291,7 @@ def phase_loop_path(cam, poses, frames, device=None):
         **dlt,
     }
     check_gates("loop path", gates)
-    return launches, slam, recorder.last_ok
+    return launches, slam, recorder.last_ok, jacobians.last
 
 
 def sim3_against_plain(args, label: str):
@@ -2661,6 +2915,7 @@ def main() -> int:
     sim3_device_launches = timed("kernels", phase_sim3_launches)
     segsum_device_launches = timed("kernels", phase_segsum_launches)
     pose_graph_row = timed("kernels", phase_pose_graph_kernel, timed("kernels", phase_pose_graph_launches))
+    sim3_opt_row = timed("kernels", phase_sim3_opt_kernel, timed("kernels", phase_sim3_opt_launches))
     vocab = timed("vocabulary", phase_vocabulary)
     launches, orbit_slam = timed("orbit path", phase_main_path, cam, poses, frames, vocab=vocab)
     dlt_row, gated_row = timed("kernels", phase_dlt_kernel, orbit_slam)
@@ -2669,11 +2924,12 @@ def main() -> int:
     del frames, vocab, orbit_slam
     stereo = start_stereo_path()  # beside the paths below; its log is printed when it ends
     try:
-        loop_launches, loop_slam, sim3_call = timed("loop path", phase_loop_path,
-                                                    *timed("loop fixture", make_loop_fixture, "cuda"))
+        loop_launches, loop_slam, sim3_call, jacobian_call = timed("loop path", phase_loop_path,
+                                                                   *timed("loop fixture", make_loop_fixture, "cuda"))
         launches += loop_launches
         sim3_row = timed("kernels", phase_sim3_kernel, loop_slam, sim3_call, sim3_device_launches)
-        del sim3_call
+        sim3_opt_row = timed("kernels", phase_sim3_opt_real_call, sim3_opt_row, jacobian_call)
+        del sim3_call, jacobian_call
         timed("parallel", phase_parallel, loop_slam)
         del loop_slam
         launches += timed("rgbd path", phase_rgbd_path, *rgbd)
@@ -2690,12 +2946,13 @@ def main() -> int:
     # above, but no path calls it: its row stands apart from the main
     # path's kernel table.
     print(json.dumps({"entry_points_off_the_main_path": [dict(pair_row, launches=0)]}), flush=True)
-    log(f"dlt, sim3, segsum and pose_graph launches by path: {PATH_LAUNCHES}")
+    log(f"dlt, sim3, segsum, pose_graph and sim3_opt launches by path: {PATH_LAUNCHES}")
     total = {k: sum(n.get(k, 0) for n in PATH_LAUNCHES.values()) for k in PATH_KERNELS}
     print(json.dumps({"kernels": [dict(pyramid_row, launches=launches), dict(dlt_row, launches=total["dlt"]),
                                   dict(gated_row, launches=total["gated"]), dict(sim3_row, launches=total["sim3"]),
                                   segsum_row(SEGSUM_CALLS, total["segsum"], segsum_device_launches),
-                                  dict(pose_graph_row, launches=total["pose_graph"])]}),
+                                  dict(pose_graph_row, launches=total["pose_graph"]),
+                                  dict(sim3_opt_row, launches=total["sim3_opt"])]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

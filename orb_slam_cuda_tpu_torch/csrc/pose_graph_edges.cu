@@ -55,22 +55,19 @@
 // a rate. 164 registers a thread, no spills
 // (`-Xptxas -v`), a block of 128 threads (8 edges) an SM at the ring's size.
 //
-// The arithmetic is templated on its scalar so that a host build (g++, no
-// CUDA: `-x c++`) runs the same code: `pose_graph_edges_host` loops over
+// The arithmetic is templated on its scalar (the dual numbers, Sim3 compose
+// and inverse and the seeds are csrc/sim3_dual.cuh's, shared with
+// csrc/sim3_opt_jacobian.cu) so that a host build (g++, no CUDA: `-x c++`)
+// runs the same code: `pose_graph_edges_host` loops over
 // (edge, lane) as the kernel's threads do, for the CPU tests, and
 // `pose_graph_edges_ops` counts the double operations the function needs
 // (each add, multiply, divide, sqrt, exp, log, sin, cos and atan2 one).
 
-#ifdef __CUDACC__
-#include <cuda_runtime.h>
-#define PGE_FN __host__ __device__ __forceinline__
-#else
-#define PGE_FN inline
-#endif
-#include <math.h>
-#include <stdint.h>
+#include "sim3_dual.cuh"
 
 namespace pge {
+
+using namespace s3d;
 
 constexpr int LANES = 16;  // threads an edge: 14 directions and 2 idle
 constexpr int DIRECTIONS = 14;
@@ -86,212 +83,9 @@ constexpr int FLAG_COS_CLAMPED = 4;   // so3_log: (trace - 1) / 2 outside [-1, 1
 constexpr int FLAG_SIGMA_ZERO = 8;    // W: |sigma| < 1e-5
 constexpr int FLAG_THETA_ZERO = 16;   // W: theta^2 < 1e-8
 
-template <typename T>
-struct Id {
-  using type = T;
-};
-template <typename T>
-using C = typename Id<T>::type;  // a constant operand: no tangent, not deduced
-
-// A dual number: value and tangent.
-template <typename T>
-struct D {
-  T v, d;
-};
-
-// Marks on tangents, for the host build's operation count (identities in
-// double): `seed` a tangent that a lane's seed makes; `tangent` any other,
-// which is 0 whatever the seed unless computed from a seed.
-template <typename T>
-PGE_FN T seed(T x) {
-  return x;
-}
-template <typename T>
-PGE_FN T tangent(T x) {
-  return x;
-}
-
-template <typename T>
-PGE_FN D<T> dual(T v, T d) {
-  D<T> r;
-  r.v = v;
-  r.d = tangent(d);
-  return r;
-}
-template <typename T>
-PGE_FN D<T> constant(T v) {
-  return dual(v, T(0.0));
-}
-
-template <typename T>
-PGE_FN D<T> operator+(D<T> a, D<T> b) {
-  return dual(a.v + b.v, a.d + b.d);
-}
-template <typename T>
-PGE_FN D<T> operator-(D<T> a, D<T> b) {
-  return dual(a.v - b.v, a.d - b.d);
-}
-template <typename T>
-PGE_FN D<T> operator-(D<T> a) {
-  return dual(-a.v, -a.d);
-}
-// torch's mul: other_t * self_p + self_t * other_p.
-template <typename T>
-PGE_FN D<T> operator*(D<T> a, D<T> b) {
-  return dual(a.v * b.v, b.d * a.v + a.d * b.v);
-}
-// torch's div: (self_t - other_t * result) / other_p.
-template <typename T>
-PGE_FN D<T> operator/(D<T> a, D<T> b) {
-  const T q = a.v / b.v;
-  return dual(q, (a.d - b.d * q) / b.v);
-}
-template <typename T>
-PGE_FN D<T> operator+(D<T> a, C<T> c) {
-  return dual(a.v + c, a.d);
-}
-template <typename T>
-PGE_FN D<T> operator+(C<T> c, D<T> a) {
-  return dual(c + a.v, a.d);
-}
-template <typename T>
-PGE_FN D<T> operator-(D<T> a, C<T> c) {
-  return dual(a.v - c, a.d);
-}
-template <typename T>
-PGE_FN D<T> operator-(C<T> c, D<T> a) {
-  return dual(c - a.v, -a.d);
-}
-template <typename T>
-PGE_FN D<T> operator*(D<T> a, C<T> c) {
-  return dual(a.v * c, a.d * c);
-}
-template <typename T>
-PGE_FN D<T> operator*(C<T> c, D<T> a) {
-  return dual(c * a.v, c * a.d);
-}
-template <typename T>
-PGE_FN D<T> operator/(D<T> a, C<T> c) {
-  return dual(a.v / c, a.d / c);
-}
-
-// sqrt: grad / (2 result).
-template <typename T>
-PGE_FN D<T> dsqrt(D<T> a) {
-  const T r = sqrt(a.v);
-  return dual(r, a.d / (T(2.0) * r));
-}
-template <typename T>
-PGE_FN D<T> dexp(D<T> a) {
-  const T r = exp(a.v);
-  return dual(r, a.d * r);
-}
-template <typename T>
-PGE_FN D<T> dlog(D<T> a) {
-  return dual(T(log(a.v)), a.d / a.v);
-}
-// atan2(y, x): (-y x_t + x y_t) / (y^2 + x^2).
-template <typename T>
-PGE_FN D<T> datan2(D<T> y, D<T> x) {
-  return dual(T(atan2(y.v, x.v)), (-y.v * x.d + x.v * y.d) / (y.v * y.v + x.v * x.v));
-}
-// torch.clamp(a, lo, hi): NaN stays NaN; the tangent passes where lo <= a <= hi.
-template <typename T>
-PGE_FN D<T> dclamp(D<T> a, C<T> lo, C<T> hi) {
-  const bool pass = a.v >= lo && a.v <= hi;
-  return dual(a.v < lo ? lo : (a.v > hi ? hi : a.v), pass ? a.d : T(0.0));
-}
-template <typename T>
-PGE_FN D<T> dclamp_min(D<T> a, C<T> lo) {
-  return a.v < lo ? dual(lo, T(0.0)) : a;
-}
-template <typename T>
-PGE_FN T sign(T x) {
-  return x > T(0.0) ? T(1.0) : (x < T(0.0) ? T(-1.0) : T(0.0));
-}
-
-// Row-major 3x3 products. `mm` both operands dual; `cm` a constant left one.
-template <typename T>
-PGE_FN void mm(const D<T> a[9], const D<T> b[9], D<T> c[9]) {
-  for (int i = 0; i < 3; ++i)
-    for (int j = 0; j < 3; ++j) c[3 * i + j] = a[3 * i] * b[j] + a[3 * i + 1] * b[3 + j] + a[3 * i + 2] * b[6 + j];
-}
-template <typename T>
-PGE_FN void mv(const D<T> a[9], const D<T> x[3], D<T> y[3]) {
-  for (int i = 0; i < 3; ++i) y[i] = a[3 * i] * x[0] + a[3 * i + 1] * x[1] + a[3 * i + 2] * x[2];
-}
-template <typename T>
-PGE_FN void cm(const T a[9], const D<T> b[9], D<T> c[9]) {
-  for (int i = 0; i < 3; ++i)
-    for (int j = 0; j < 3; ++j) c[3 * i + j] = a[3 * i] * b[j] + a[3 * i + 1] * b[3 + j] + a[3 * i + 2] * b[6 + j];
-}
-template <typename T>
-PGE_FN void cv(const T a[9], const D<T> x[3], D<T> y[3]) {
-  for (int i = 0; i < 3; ++i) y[i] = a[3 * i] * x[0] + a[3 * i + 1] * x[1] + a[3 * i + 2] * x[2];
-}
-
-// A Sim3 with tangents: x -> s R x + t.
-template <typename T>
-struct Sim3 {
-  D<T> R[9], t[3], s;
-};
-
-// exp(xi) o S at xi = 0 (the primal S) with the tangent along coordinate k
-// of xi (k < 3: rho, k < 6: phi, k == 6: sigma; any other: none).
-template <typename T>
-PGE_FN Sim3<T> seeded(const T R[9], const T t[3], T s, int k) {
-  Sim3<T> S;
-  for (int i = 0; i < 9; ++i) S.R[i] = constant(R[i]);
-  for (int i = 0; i < 3; ++i) S.t[i] = constant(t[i]);
-  S.s = constant(s);
-  if (k >= 0 && k < 3) {
-    S.t[k].d = seed(T(1.0));
-  } else if (k >= 3 && k < 6) {
-    // hat(e_a) v = e_a x v, for t and for each column of R.
-    const int a = k - 3, b = (a + 1) % 3, c = (a + 2) % 3;
-    for (int col = 0; col < 4; ++col) {
-      D<T>* v[3];
-      for (int i = 0; i < 3; ++i) v[i] = col < 3 ? &S.R[3 * i + col] : &S.t[i];
-      const T vb = v[b]->v, vc = v[c]->v;
-      v[b]->d = seed(-vc);
-      v[c]->d = seed(vb);
-    }
-  } else if (k == 6) {
-    for (int i = 0; i < 3; ++i) S.t[i].d = seed(t[i]);
-    S.s.d = seed(s);
-  }
-  return S;
-}
-
-// sim3.compose(a, b): R = Ra Rb, t = sa (Ra tb) + ta, s = sa sb.
-template <typename T>
-PGE_FN Sim3<T> compose(const Sim3<T>& a, const Sim3<T>& b) {
-  Sim3<T> c;
-  D<T> Rt[3];
-  mm(a.R, b.R, c.R);
-  mv(a.R, b.t, Rt);
-  for (int i = 0; i < 3; ++i) c.t[i] = a.s * Rt[i] + a.t[i];
-  c.s = a.s * b.s;
-  return c;
-}
-
-// sim3.inverse: R^T, 1 / s (reciprocal: -t r^2), -(1 / s) (R^T t).
-template <typename T>
-PGE_FN Sim3<T> inverse(const Sim3<T>& a) {
-  Sim3<T> c;
-  for (int i = 0; i < 3; ++i)
-    for (int j = 0; j < 3; ++j) c.R[3 * i + j] = a.R[3 * j + i];
-  const T si = T(1.0) / a.s.v;
-  c.s = dual(si, -a.s.d * (si * si));
-  D<T> Rt[3];
-  mv(c.R, a.t, Rt);
-  for (int i = 0; i < 3; ++i) c.t[i] = -c.s * Rt[i];
-  return c;
-}
-
 // M o a, M without tangent.
 template <typename T>
-PGE_FN Sim3<T> compose_const(const T MR[9], const T Mt[3], T Ms, const Sim3<T>& a) {
+S3D_FN Sim3<T> compose_const(const T MR[9], const T Mt[3], T Ms, const Sim3<T>& a) {
   Sim3<T> c;
   D<T> Rt[3];
   cm(MR, a.R, c.R);
@@ -303,7 +97,7 @@ PGE_FN Sim3<T> compose_const(const T MR[9], const T Mt[3], T Ms, const Sim3<T>& 
 
 // se3.so3_log, with its flags.
 template <typename T>
-PGE_FN void so3_log(const D<T> R[9], D<T> phi[3], int& flags) {
+S3D_FN void so3_log(const D<T> R[9], D<T> phi[3], int& flags) {
   const D<T> c0 = ((R[0] + R[4] + R[8]) - T(1.0)) * T(0.5);
   if (!(c0.v >= T(-1.0) && c0.v <= T(1.0))) flags |= FLAG_COS_CLAMPED;
   const D<T> cos_t = dclamp(c0, T(-1.0), T(1.0));
@@ -336,7 +130,7 @@ PGE_FN void so3_log(const D<T> R[9], D<T> phi[3], int& flags) {
 
 // The 3x3 map rho -> t of sim3.exp at (phi, sigma), with its flags.
 template <typename T>
-PGE_FN void w_matrix(const D<T> phi[3], D<T> sigma, D<T> W[9], int& flags) {
+S3D_FN void w_matrix(const D<T> phi[3], D<T> sigma, D<T> W[9], int& flags) {
   const D<T> theta2 = phi[0] * phi[0] + phi[1] * phi[1] + phi[2] * phi[2];
   const D<T> one = constant(T(1.0)), zero = constant(T(0.0));
   const bool nzs = fabs(sigma.v) < T(1e-5), nzt = theta2.v < T(EPS);
@@ -375,7 +169,7 @@ PGE_FN void w_matrix(const D<T> phi[3], D<T> sigma, D<T> W[9], int& flags) {
 // x = A^-1 y by Gaussian elimination with partial pivoting (LAPACK's getrf
 // order of pivots), for the value and then the tangent's right-hand side.
 template <typename T>
-PGE_FN void lu3(T a[9], int piv[3]) {
+S3D_FN void lu3(T a[9], int piv[3]) {
   for (int k = 0; k < 3; ++k) {
     int p = k;
     for (int i = k + 1; i < 3; ++i)
@@ -394,7 +188,7 @@ PGE_FN void lu3(T a[9], int piv[3]) {
   }
 }
 template <typename T>
-PGE_FN void lu3_solve(const T lu[9], const int piv[3], T x[3]) {
+S3D_FN void lu3_solve(const T lu[9], const int piv[3], T x[3]) {
   for (int k = 0; k < 3; ++k)
     if (piv[k] != k) {
       const T tmp = x[k];
@@ -412,7 +206,7 @@ PGE_FN void lu3_solve(const T lu[9], const int piv[3], T x[3]) {
 // sim3.log: (rho, phi, sigma), rho = W(phi, sigma)^-1 t; its tangent
 // rho_t = W^-1 (t_t - W_t rho).
 template <typename T>
-PGE_FN void sim3_log(const Sim3<T>& S, T r[7], T dr[7], int& flags) {
+S3D_FN void sim3_log(const Sim3<T>& S, T r[7], T dr[7], int& flags) {
   D<T> phi[3], W[9];
   so3_log(S.R, phi, flags);
   const D<T> sigma = dlog(S.s);
@@ -438,7 +232,7 @@ PGE_FN void sim3_log(const Sim3<T>& S, T r[7], T dr[7], int& flags) {
 // One lane's chain: r and its tangent along direction `dir` (0-6: xi_i's
 // coordinates, 7-13: xi_j's; any other: none). Returns the flags.
 template <typename T>
-PGE_FN int edge_chain(const T Ri[9], const T ti[3], T si, const T Rj[9], const T tj[3], T sj, const T MR[9],
+S3D_FN int edge_chain(const T Ri[9], const T ti[3], T si, const T Rj[9], const T tj[3], T sj, const T MR[9],
                       const T Mt[3], T Ms, int dir, T r[7], T dr[7]) {
   const Sim3<T> Si = seeded(Ri, ti, si, dir < 7 ? dir : -1);
   const Sim3<T> Sj = seeded(Rj, tj, sj, dir >= 7 ? dir - 7 : -1);
@@ -449,7 +243,7 @@ PGE_FN int edge_chain(const T Ri[9], const T ti[3], T si, const T Rj[9], const T
 
 // The work of thread (e, lane): loads, the chain, its stores.
 template <typename T>
-PGE_FN void edge_lane(const float* R, const float* t, const float* s, int64_t K, const int64_t* ei, const int64_t* ej,
+S3D_FN void edge_lane(const float* R, const float* t, const float* s, int64_t K, const int64_t* ei, const int64_t* ej,
                       const float* mR, const float* mt, const float* ms, const bool* valid, int64_t e, int lane,
                       float* r_out, float* Ji, float* Jj, int* flags_out) {
   float* J = (lane < 7 ? Ji : Jj) + e * 49 + lane % 7;
@@ -524,64 +318,6 @@ extern "C" int pose_graph_edges(const void* R, const void* t, const void* s, int
 
 #else  // a host build (g++ -x c++): the same arithmetic for the CPU tests and the operation count
 
-namespace pge {
-
-// A double that counts the operations done on it, as the function needs
-// them: an operation whose operands are all primal values is the edge's
-// (`primal_ops`; every lane repeats it, the function needs it once), one
-// with an operand computed from a lane's seed is that lane's
-// (`tangent_ops`), and one with a tangent that is 0 whatever the seed (from
-// a constant, or a lane whose seed lies in the other vertex) as an operand
-// is counted nowhere: a product with it is 0 and a sum the other operand.
-// Comparisons are not arithmetic and count nowhere either.
-enum State : unsigned char { PRIMAL = 0, ZERO = 1, SEEDED = 2 };
-
-struct Counted {
-  double x;
-  State st;
-  static thread_local int64_t primal_ops, tangent_ops;
-  Counted(double v = 0.0) : x(v), st(PRIMAL) {}
-  Counted(double v, State s) : x(v), st(s) {}
-  explicit operator float() const { return static_cast<float>(x); }
-};
-thread_local int64_t Counted::primal_ops = 0;
-thread_local int64_t Counted::tangent_ops = 0;
-
-inline Counted op(double v, State s) {
-  if (s == PRIMAL) ++Counted::primal_ops;
-  if (s == SEEDED) ++Counted::tangent_ops;
-  return Counted(v, s);
-}
-inline Counted op(double v, Counted a, Counted b) {  // a sum: a zero tangent leaves the other operand
-  if (a.st == ZERO || b.st == ZERO) return Counted(v, a.st > b.st ? a.st : b.st);
-  return op(v, a.st > b.st ? a.st : b.st);
-}
-inline Counted mul_op(double v, Counted a, Counted b) {  // a product or quotient: a zero tangent makes 0
-  if (a.st == ZERO || b.st == ZERO) return Counted(v, ZERO);
-  return op(v, a.st > b.st ? a.st : b.st);
-}
-inline Counted seed(Counted a) { return Counted(a.x, SEEDED); }
-inline Counted tangent(Counted a) { return Counted(a.x, a.st == PRIMAL ? ZERO : a.st); }
-inline Counted operator+(Counted a, Counted b) { return op(a.x + b.x, a, b); }
-inline Counted operator-(Counted a, Counted b) { return op(a.x - b.x, a, b); }
-inline Counted operator*(Counted a, Counted b) { return mul_op(a.x * b.x, a, b); }
-inline Counted operator/(Counted a, Counted b) { return mul_op(a.x / b.x, a, b); }
-inline Counted operator-(Counted a) { return Counted(-a.x, a.st); }  // a sign flip, folded into its use
-inline bool operator<(Counted a, Counted b) { return a.x < b.x; }
-inline bool operator>(Counted a, Counted b) { return a.x > b.x; }
-inline bool operator<=(Counted a, Counted b) { return a.x <= b.x; }
-inline bool operator>=(Counted a, Counted b) { return a.x >= b.x; }
-inline bool operator==(Counted a, Counted b) { return a.x == b.x; }
-inline Counted sqrt(Counted a) { return op(::sqrt(a.x), a.st); }
-inline Counted exp(Counted a) { return op(::exp(a.x), a.st); }
-inline Counted log(Counted a) { return op(::log(a.x), a.st); }
-inline Counted sin(Counted a) { return op(::sin(a.x), a.st); }
-inline Counted cos(Counted a) { return op(::cos(a.x), a.st); }
-inline Counted atan2(Counted a, Counted b) { return op(::atan2(a.x, b.x), a, b); }
-inline Counted fabs(Counted a) { return Counted(::fabs(a.x), a.st); }  // a sign bit cleared, folded into its use
-
-}  // namespace pge
-
 // The kernel's work on the host, thread by thread, in double.
 extern "C" int pose_graph_edges_host(const float* R, const float* t, const float* s, int64_t K, const int64_t* ei,
                                      const int64_t* ej, const float* mR, const float* mt, const float* ms,
@@ -609,13 +345,13 @@ extern "C" int pose_graph_edges_ops(const float* R, const float* t, const float*
     const bool ok = valid[e] && a >= 0 && a < K && b >= 0 && b < K;
     primal[e] = 0;
     for (int lane = 0; lane < pge::DIRECTIONS; ++lane) {
-      pge::Counted::primal_ops = pge::Counted::tangent_ops = 0;
+      s3d::Counted::primal_ops = s3d::Counted::tangent_ops = 0;
       // edge_lane on a one-edge view, so its stores land in this call's scratch
-      pge::edge_lane<pge::Counted>(R, t, s, K, &ei[e], &ej[e], mR + 9 * e, mt + 3 * e, ms + e, valid + e, 0, lane,
+      pge::edge_lane<s3d::Counted>(R, t, s, K, &ei[e], &ej[e], mR + 9 * e, mt + 3 * e, ms + e, valid + e, 0, lane,
                                    r, J, J + 49, &flags);
-      tangent[e * pge::DIRECTIONS + lane] = ok ? pge::Counted::tangent_ops : 0;
-      if (ok && lane > 0 && pge::Counted::primal_ops != primal[e]) return 2;
-      primal[e] = ok ? pge::Counted::primal_ops : 0;
+      tangent[e * pge::DIRECTIONS + lane] = ok ? s3d::Counted::tangent_ops : 0;
+      if (ok && lane > 0 && s3d::Counted::primal_ops != primal[e]) return 2;
+      primal[e] = ok ? s3d::Counted::primal_ops : 0;
     }
   }
   return 0;

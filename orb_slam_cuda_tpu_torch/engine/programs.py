@@ -55,12 +55,13 @@ from typing import NamedTuple
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from ..ops import dlt_kernel, fast_kernel, pose_graph_kernel, segsum, sim3_kernel
+from ..ops import dlt_kernel, fast_kernel, pose_graph_kernel, segsum, sim3_kernel, sim3_opt_kernel
 
 # The launch counts of the hand-written kernels' entries (`launches`, and
-# `recorded` under capture): the FAST, DLT, Sim3, segment-sum and
-# edge-linearization modules' own and the DLT kernel's gated entry's.
-KERNELS = (fast_kernel, dlt_kernel, dlt_kernel.gated, sim3_kernel, segsum, pose_graph_kernel)
+# `recorded` under capture): the FAST, DLT, Sim3, segment-sum,
+# edge-linearization and OptimizeSim3-Jacobian modules' own and the DLT
+# kernel's gated entry's.
+KERNELS = (fast_kernel, dlt_kernel, dlt_kernel.gated, sim3_kernel, segsum, pose_graph_kernel, sim3_opt_kernel)
 
 
 class CaptureError(RuntimeError):

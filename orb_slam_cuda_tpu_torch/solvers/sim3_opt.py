@@ -5,10 +5,12 @@ One Sim3 vertex S12, fixed camera-frame points of both keyframes, and a
 pair of Huber-robust edges per correspondence (uv1 against S12 X2c, uv2
 against S12^-1 X1c). Schedule: 5 LM iterations, chi2 > th2 pairs removed,
 10 more; fewer than 10 survivors of the first cut fail. Jacobians are
-forward-mode derivatives of the retraction at 0 (`sim3.tangent_jacobian`,
-in float64, rounded to float32); accept/reject is a tensor `where` and the
-6x6/7x7 solve checks no status, so the 15 iterations never sync and run
-inside a captured CUDA graph (the loop closer's `sim3_refine` program).
+forward-mode derivatives of the retraction at 0 in float64, rounded to
+float32: one launch of a hand-written kernel an iteration on the card
+(ops/sim3_opt_kernel.py::jacobian, csrc/sim3_opt_jacobian.cu), its plain
+version on the CPU; accept/reject is a tensor `where` and the 6x6/7x7
+solve checks no status, so the 15 iterations never sync and run inside a
+captured CUDA graph (the loop closer's `sim3_refine` program).
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch
 
 from ..geometry import sim3
 from ..geometry.camera import Camera
+from ..ops import sim3_opt_kernel
 
 
 class Sim3OptResult(NamedTuple):
@@ -31,19 +34,6 @@ class Sim3OptResult(NamedTuple):
     n_inliers: torch.Tensor  # () int32 (0 when the <10-survivors gate fails)
 
 
-def _pair_residuals(S, x1c, x2c, cam: Camera):
-    """Projections of both edge families at Sim3 estimate S, and their
-    depth flags."""
-    y1 = sim3.transform(S, x2c)  # into the KF1 camera frame
-    y2 = sim3.transform(sim3.inverse(S), x1c)  # into the KF2 camera frame
-
-    def proj(y):
-        z = torch.where(y[:, 2] > 1e-6, y[:, 2], torch.full_like(y[:, 2], 1e-6))
-        return torch.stack([cam.fx * y[:, 0] / z + cam.cx, cam.fy * y[:, 1] / z + cam.cy], dim=-1)
-
-    return proj(y1), proj(y2), y1[:, 2] > 1e-6, y2[:, 2] > 1e-6
-
-
 def optimize_sim3(S12, x1c, x2c, uv1, uv2, inv_sigma2_1, inv_sigma2_2, valid,
                   cam: Camera, fix_scale: bool = False, th2: float = 10.0) -> Sim3OptResult:
     """S12 (R,t,s) initial estimate; x1c/x2c (M,3) correspondence points
@@ -52,11 +42,9 @@ def optimize_sim3(S12, x1c, x2c, uv1, uv2, inv_sigma2_1, inv_sigma2_2, valid,
     dev = x1c.device
     delta = math.sqrt(float(np.float32(th2)))
     isig = torch.cat([inv_sigma2_1, inv_sigma2_2])
-    zero7 = torch.zeros((7,), dtype=torch.float32, device=dev)
-    f64 = tuple(a.double() for a in (x1c, x2c, uv1, uv2))
 
-    def stacked(S, x1c=x1c, x2c=x2c, uv1=uv1, uv2=uv2):
-        p1, p2, _, _ = _pair_residuals(S, x1c, x2c, cam)
+    def stacked(S):
+        p1, p2, _, _ = sim3_opt_kernel.pair_residuals(S, x1c, x2c, cam)
         return torch.cat([p1 - uv1, p2 - uv2], dim=0)  # (2M,2)
 
     def robust_err(r, act2):
@@ -70,8 +58,7 @@ def optimize_sim3(S12, x1c, x2c, uv1, uv2, inv_sigma2_1, inv_sigma2_2, valid,
         lam = torch.full((), 1e-3, dtype=torch.float32, device=dev)
         for _ in range(n_iters):
             r = stacked(S)
-            S64 = tuple(a.double() for a in S)
-            J = sim3.tangent_jacobian(lambda xi: stacked(sim3.retract(S64, xi), *f64), zero7).float()
+            J = sim3_opt_kernel.jacobian(S, x1c, x2c, cam)
             chi2, w_rob, err_old = robust_err(r, act2)
             w = torch.where(act2, isig * w_rob, torch.zeros_like(isig))
             H = torch.einsum("mki,mkj,m->ij", J, J, w)
@@ -93,7 +80,7 @@ def optimize_sim3(S12, x1c, x2c, uv1, uv2, inv_sigma2_1, inv_sigma2_2, valid,
         return S
 
     def classify(S, base):
-        p1, p2, ok1, ok2 = _pair_residuals(S, x1c, x2c, cam)
+        p1, p2, ok1, ok2 = sim3_opt_kernel.pair_residuals(S, x1c, x2c, cam)
         c1 = torch.sum((p1 - uv1) ** 2, dim=-1) * inv_sigma2_1
         c2 = torch.sum((p2 - uv2) ** 2, dim=-1) * inv_sigma2_2
         return base & ok1 & ok2 & (c1 <= th2) & (c2 <= th2)

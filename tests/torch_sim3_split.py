@@ -313,7 +313,7 @@ def record(out: str) -> None:
     from orb_slam_cuda_tpu_torch.engine.loop_closing import MIN_SIM3_INLIERS
 
     chip_smoke.phase_build()
-    _, slam, call = chip_smoke.phase_loop_path(*chip_smoke.make_loop_fixture("cuda"))
+    _, slam, call, _ = chip_smoke.phase_loop_path(*chip_smoke.make_loop_fixture("cuda"))
     if call is None:
         raise SystemExit("torch_sim3_split: the loop path made no Sim3 call whose RANSAC passed")
     (_, valid, x1, x2, uv1, uv2, th1, th2), sets = call
