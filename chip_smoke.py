@@ -285,6 +285,8 @@ POSE_GRAPH_GN_STEPS = 15
 POSE_GRAPH_R_ABS = 1e-12
 POSE_GRAPH_J_REL = 2.0**-22
 POSE_GRAPH_SEED = 7  # branch_edges' seed
+POSE_GRAPH_DESIGN = ("8 edges a block: each edge's primal chain once (a lane an edge), then a lane an (edge, "
+                     "direction), a warp one direction class, its tangent chain specialised to the class")
 SIM3_OPT_SOURCE = "orb_slam_cuda_tpu_torch/csrc/sim3_opt_jacobian.cu"
 # OptimizeSim3's LM iterations a refinement (5, then 10): one Jacobian
 # launch each.
@@ -296,6 +298,8 @@ SIM3_OPT_J_REL = 2.0**-22
 # The full-width call: a KITTI keyframe's 2,000 features as pairs
 # (`sim3_opt_kernel.synthetic_pairs`, its special rows at the head).
 SIM3_OPT_FULL_WIDTH, SIM3_OPT_SEED = 2000, 17
+SIM3_OPT_DESIGN = ("the seven seeded poses once a block in shared memory; a thread a (pair, family, direction), a "
+                   "warp one (family, direction) over 32 pairs")
 # The least bytes of the Jacobian: S (52 B) read once, each pair's x1c and
 # x2c (24 B) read once and its J (112 B) written once.
 BYTES_SIM3_OPT_POSE, BYTES_SIM3_OPT_PAIR = 52, 24 + 112
@@ -1552,7 +1556,7 @@ def phase_pose_graph_launches() -> int:
 
     launches0 = pose_graph_kernel.launches
     args = pose_graph_args(padded_ring("cuda"))
-    names = device_event_names(lambda: pose_graph_kernel.launch(*args))
+    names = bracketed_device_event_names(lambda: pose_graph_kernel.launch(*args))
     pose_graph_kernel.launches = launches0  # the profile's launches are not a path's
     log(f"pose_graph_edges device launches a call (torch.profiler): {len(names)} {names}")
     check_gates("pose_graph_edges kernel", {"one device launch a linearization":
@@ -1623,7 +1627,7 @@ def phase_pose_graph_kernel(device_launches: int) -> dict:
         f"TFLOP/s; {nbytes} bytes: {by_bytes:.6f} ms); share {bound_ms / warm:.4f} warm; library call: none (no one "
         "PyTorch call linearizes a Sim3 residual)")
     return {"name": "pose_graph_edges", "route": "cuda", "source": POSE_GRAPH_SOURCE,
-            "replaces": "orb_slam_cuda_tpu/solvers/pose_graph.py:88",
+            "replaces": "orb_slam_cuda_tpu/solvers/pose_graph.py:88", "design": POSE_GRAPH_DESIGN,
             "max_abs_err": max(c["rep"]["max_abs_err"] for c in calls.values()), "ms": warm, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None, "cold_l2_ms": cold,
             "as_called_ms": called, "device_launches_a_call": device_launches, "edges": ring["edges"],
@@ -1777,7 +1781,7 @@ def phase_sim3_opt_kernel(device_launches: int) -> dict:
                                                  "64 pairs at 2 rad, scale 1.7")}
     times = sim3_opt_times(full, "the full-width call")
     return {"name": "sim3_opt_jacobian", "route": "cuda", "source": SIM3_OPT_SOURCE,
-            "replaces": "orb_slam_cuda_tpu/solvers/sim3_opt.py:101",
+            "replaces": "orb_slam_cuda_tpu/solvers/sim3_opt.py:101", "design": SIM3_OPT_DESIGN,
             "max_abs_err": max(c["max_abs_err"] for c in checks.values()), "library_ms": None,
             "device_launches_a_call": device_launches, "full_width": times,
             "checks": checks}
@@ -1970,7 +1974,7 @@ def phase_segsum_launches() -> int:
     seg = segsum.segment_index(24, idx.cuda(), valid.cuda())
     vals = vals.cuda()
     launches0 = segsum.launches
-    names = device_event_names(lambda: segsum.launch(seg, vals))
+    names = bracketed_device_event_names(lambda: segsum.launch(seg, vals))
     segsum.launches = launches0  # the profile's launches are not a path's
     kernel = segsum.kernel_name(24, 36)
     log(f"segsum device launches a call (torch.profiler): {len(names)} {names}; the rule picks {kernel}")
@@ -2395,7 +2399,7 @@ def phase_sim3_launches() -> int:
 
     launches0 = sim3_kernel.launches
     args = sim3_full_width_args(torch.device("cuda"))
-    names = device_event_names(lambda: sim3_kernel.launch(*args))
+    names = bracketed_device_event_names(lambda: sim3_kernel.launch(*args))
     sim3_kernel.launches = launches0  # the profile's launches are not a path's
     log(f"sim3_ransac device launches a call (torch.profiler): {len(names)} {names}")
     check_gates("sim3_ransac kernel",

@@ -175,7 +175,9 @@ struct Sim3 {
 };
 
 // exp(xi) o S at xi = 0 (the primal S) with the tangent along coordinate k
-// of xi (k < 3: rho, k < 6: phi, k == 6: sigma; any other: none).
+// of xi (k < 3: rho, k < 6: phi, k == 6: sigma; any other: none). Every
+// array index is a constant once the loops unroll and k only picks values,
+// so a runtime k keeps S in registers.
 template <typename T>
 S3D_FN Sim3<T> seeded(const T R[9], const T t[3], T s, int k) {
   Sim3<T> S;
@@ -183,16 +185,21 @@ S3D_FN Sim3<T> seeded(const T R[9], const T t[3], T s, int k) {
   for (int i = 0; i < 3; ++i) S.t[i] = constant(t[i]);
   S.s = constant(s);
   if (k >= 0 && k < 3) {
-    S.t[k].d = seed(T(1.0));
+#pragma unroll
+    for (int i = 0; i < 3; ++i) S.t[i].d = i == k ? seed(T(1.0)) : S.t[i].d;
   } else if (k >= 3 && k < 6) {
-    // hat(e_a) v = e_a x v, for t and for each column of R.
-    const int a = k - 3, b = (a + 1) % 3, c = (a + 2) % 3;
-    for (int col = 0; col < 4; ++col) {
-      D<T>* v[3];
-      for (int i = 0; i < 3; ++i) v[i] = col < 3 ? &S.R[3 * i + col] : &S.t[i];
-      const T vb = v[b]->v, vc = v[c]->v;
-      v[b]->d = seed(-vc);
-      v[c]->d = seed(vb);
+    // hat(e_a) v = e_a x v, for t and for each column of R: component b =
+    // a + 1 gets -v_c, component c = a + 2 gets v_b (mod 3).
+    const int b = (k - 2) % 3, c = (k - 1) % 3;
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+#pragma unroll
+      for (int col = 0; col < 3; ++col) {
+        const T next = R[3 * ((i + 1) % 3) + col], prev = R[3 * ((i + 2) % 3) + col];
+        S.R[3 * i + col].d = i == b ? seed(-next) : (i == c ? seed(prev) : S.R[3 * i + col].d);
+      }
+      const T next = t[(i + 1) % 3], prev = t[(i + 2) % 3];
+      S.t[i].d = i == b ? seed(-next) : (i == c ? seed(prev) : S.t[i].d);
     }
   } else if (k == 6) {
     for (int i = 0; i < 3; ++i) S.t[i].d = seed(t[i]);

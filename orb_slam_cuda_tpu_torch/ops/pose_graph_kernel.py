@@ -21,14 +21,17 @@ agree to well within the r and J tolerances (so3_log's series at theta =
 1e-4, W's |sigma| < 1e-5 side), so an edge on the wrong side would pass
 those gates.
 
-The kernel is built at first CUDA use with nvcc for sm_90a into
-`build/kernels/` at the repository root, a shared library with a plain C
-interface loaded through ctypes, as ops/sim3_kernel.py builds. Its
+The kernel (8 edges a block: each edge's primal chain once, then each
+direction's tangent chain specialised to its class from the kept primal
+values; the source's header) is built at first CUDA use with nvcc for
+sm_90a into `build/kernels/` at the repository root, a shared library with
+a plain C interface loaded through ctypes, as ops/sim3_kernel.py builds. Its
 arithmetic is templated on the scalar, so g++ builds the same source for
-the host (`build_host`): `host` runs the kernel's threads one after the
-other on CPU tensors and `edge_ops` counts the double operations the
-function needs (an edge's primal chain once, each direction's tangent
-chain), for the CPU tests and the bound that chip_smoke.py computes.
+the host (`build_host`): `host` runs the kernel's phases block by block on
+CPU tensors (`generic=True`: the generic dual chain, the reference) and
+`edge_ops` counts the double operations the function needs (an edge's
+primal chain once, each direction's tangent chain), for the CPU tests and
+the bound that chip_smoke.py computes.
 """
 
 from __future__ import annotations
@@ -137,6 +140,7 @@ def build_host() -> str:
     if _host_lib is None:
         lib = ctypes.CDLL(path)
         _entry(lib, "pose_graph_edges_host", 4)
+        _entry(lib, "pose_graph_edges_host_generic", 4)
         _entry(lib, "pose_graph_edges_ops", 2)
         _host_lib = lib
     return path
@@ -201,15 +205,18 @@ def linearize(R, t, s, ei, ej, meas_R, meas_t, meas_s, valid):
     return launch(R, t, s, ei, ej, meas_R, meas_t, meas_s, valid)[:3]
 
 
-def host(R, t, s, ei, ej, meas_R, meas_t, meas_s, valid):
-    """The kernel's arithmetic run on the host (the g++ build), thread by
-    thread, on CPU tensors: (r, Ji, Jj, flags) as `launch` returns them."""
+def host(R, t, s, ei, ej, meas_R, meas_t, meas_s, valid, generic=False):
+    """The kernel's arithmetic run on the host (the g++ build), block by
+    block as the kernel's threads do, on CPU tensors: (r, Ji, Jj, flags) as
+    `launch` returns them. `generic`: every (edge, direction) through the
+    generic dual chain instead (a lane the whole chain), the reference that the
+    split form is held to."""
     args = (R, t, s, ei, ej, meas_R, meas_t, meas_s, valid)
     k, e = _checked(args, torch.device("cpu"))
     build_host()
     out = _outputs(e, "cpu")
-    rc = _host_lib.pose_graph_edges_host(*(x.data_ptr() for x in args[:3]), k, *(x.data_ptr() for x in args[3:]),
-                                         e, *(o.data_ptr() for o in out))
+    fn = _host_lib.pose_graph_edges_host_generic if generic else _host_lib.pose_graph_edges_host
+    rc = fn(*(x.data_ptr() for x in args[:3]), k, *(x.data_ptr() for x in args[3:]), e, *(o.data_ptr() for o in out))
     if rc != 0:
         raise RuntimeError(f"pose_graph_edges_host failed: {rc}")
     return out

@@ -16,11 +16,13 @@ counts one in `launches` (module attribute), or in `recorded` under graph
 capture; engine/programs.py adds a graph's recorded launches at each
 replay. M = 0 launches nothing and returns an empty J.
 
-The kernel is built at first CUDA use with nvcc for sm_90a into
+The kernel (the seven seeded poses once a block in shared memory; a
+thread a pair, family and direction, a warp one family and direction; the
+source's header) is built at first CUDA use with nvcc for sm_90a into
 `build/kernels/` at the repository root, a shared library with a plain C
 interface loaded through ctypes, as ops/pose_graph_kernel.py builds. Its
 arithmetic is templated on the scalar, so g++ builds the same source for
-the host (`build_host`): `host` runs the kernel's threads one after the
+the host (`build_host`): `host` runs the kernel's items one after the
 other on CPU tensors and `pair_ops` counts the double operations the
 function needs, for the CPU tests and the bound that chip_smoke.py
 computes.
@@ -169,8 +171,8 @@ def jacobian(S, x1c, x2c, cam):
 
 
 def host(S, x1c, x2c, cam):
-    """The kernel's arithmetic run on the host (the g++ build), thread by
-    thread, on CPU tensors: J as `launch` returns it."""
+    """The kernel's arithmetic run on the host (the g++ build), item by
+    item, on CPU tensors: J as `launch` returns it."""
     m = _checked(S, x1c, x2c, torch.device("cpu"))
     build_host()
     J = torch.empty((2 * m, 2, DIRECTIONS), dtype=torch.float32)

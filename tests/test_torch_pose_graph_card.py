@@ -6,10 +6,11 @@ solve through it captured against eager.
 
 Each case is marked `cuda` and skips without a card. Inputs: the
 256-keyframe drifted ring of chip_smoke.py's phase 5b (763 edges) padded
-to the loop closer's bucket of 1,024 with identity edges, and
-`branch_edges`, whose residuals take every branch of sim3.log (the
-identity, so3_log's small, generic and near-pi branches, W's sigma ~ 0
-and theta^2 < 1e-8, cos theta rounded past 1). Gates, the same as
+to the loop closer's bucket of 1,024 with identity edges, its first 65
+edges (a last block of one edge), and `branch_edges`, whose residuals take
+every branch of sim3.log (the identity, so3_log's small, generic and
+near-pi branches, W's sigma ~ 0 and theta^2 < 1e-8, cos theta rounded past
+1); and one block mixing valid, padded, out-of-range and non-finite edges. Gates, the same as
 chip_smoke.py's: r within one float32 ulp of the plain version's or 1e-12
 (double cancellation at r ~ 0), Ji and Jj within 2^-22 of the edge's
 largest entry, the branch flags equal, padded edges zeros, two launches
@@ -50,11 +51,14 @@ def _card():
 def _args(case, dev):
     if case == "branch_edges":
         return pk.branch_edges(7, dev)
-    return chip_smoke.pose_graph_args(chip_smoke.padded_ring(dev))
+    args = chip_smoke.pose_graph_args(chip_smoke.padded_ring(dev))
+    if case == "ragged":  # 65 edges: the last block of 8 holds one
+        return args[:3] + tuple(a[:65].contiguous() for a in args[3:])
+    return args
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["ring", "branch_edges"])
+@pytest.mark.parametrize("case", ["ring", "branch_edges", "ragged"])
 def test_kernel_equals_plain(case):
     dev = _card()
     args = _args(case, dev)
@@ -64,6 +68,65 @@ def test_kernel_equals_plain(case):
     assert all(torch.equal(a, b) for a, b in zip(out, again)), "two launches differ"
     report = chip_smoke.pose_graph_against_plain(out, want, pk.branch_flags_plain(*args), args[-1])
     assert all(report["gates"].values()), report
+
+
+def _mixed(dev):
+    """`branch_edges(7)` whose first block of 8 edges mixes every kind: valid
+    edges, a padded one (edge 3), a valid one whose index lies outside [0,
+    K) (edge 2), and valid ones touching a vertex with a NaN rotation entry
+    (vertex 3), an infinite translation (vertex 5) or a zero scale (vertex
+    6), which take the generic chain. Returns the arguments and, for the
+    plain version, the same with edge 2's index in range."""
+    R, t, s, ei, ej, mR, mt, ms, valid = pk.branch_edges(7, "cpu")
+    R[3, 1, 1] = float("nan")
+    t[5, 0] = float("inf")
+    s[6] = 0.0
+    for e, (i, j) in zip((4, 5, 6), ((3, 1), (2, 5), (6, 4))):
+        ei[e], ej[e] = i, j
+    valid[3] = False
+    plain_ei = ei.clone()
+    ei[2] = R.shape[0] + 3
+    to = lambda xs: tuple(x.to(dev) for x in xs)  # noqa: E731
+    return to((R, t, s, ei, ej, mR, mt, ms, valid)), to((R, t, s, plain_ei, ej, mR, mt, ms, valid))
+
+
+@pytest.mark.cuda
+def test_mixed_block():
+    """One block of every kind of edge: the padded edge zeros, the one out of
+    range NaN and flags -1, the rest as the plain version's: Ji and Jj NaN
+    exactly where it has NaN and within 2^-22 of the edge's largest finite
+    entry elsewhere, r finite exactly where it is finite and within one
+    float32 ulp or 1e-12 there, the flags equal; two launches bit-equal.
+    (Where W is not finite the kernel's elimination and the plain solve
+    part on r's rho, NaN against inf: ROADMAP queue 3, K.)"""
+    dev = _card()
+    args, plain_args = _mixed(dev)
+    out, again = pk.launch(*args), pk.launch(*args)
+    want = pk.linearize_plain(*plain_args)
+    flags_plain = pk.branch_flags_plain(*plain_args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(out, again))
+    r, Ji, Jj, flags = (x.cpu() for x in out)
+    assert not (r[3].any() or Ji[3].any() or Jj[3].any() or flags[3])
+    assert bool(torch.isnan(r[2]).all() and torch.isnan(Ji[2]).all() and torch.isnan(Jj[2]).all()) and flags[2] == -1
+    keep = torch.ones(r.shape[0], dtype=torch.bool)
+    keep[2] = False
+    assert torch.equal(flags[keep], flags_plain.cpu()[keep])
+    nan_edges = 0
+    for got, w in zip((r, Ji, Jj), (x.cpu() for x in want)):
+        got, w = got[keep].flatten(1), w[keep].flatten(1)
+        nan = ~torch.isfinite(w) if got.shape[1] == 7 else torch.isnan(w)
+        assert torch.equal(~torch.isfinite(got) if got.shape[1] == 7 else torch.isnan(got), nan)
+        nan_edges = max(nan_edges, int(nan.any(1).sum()))
+        if got.shape[1] == 7:
+            ulp = torch.abs(torch.nextafter(w, torch.full_like(w, float("inf"))) - w)
+            tol = torch.clamp(torch.where(torch.isfinite(ulp), ulp, 0.0), min=chip_smoke.POSE_GRAPH_R_ABS)
+        else:
+            tol = chip_smoke.POSE_GRAPH_J_REL * torch.clamp(torch.where(nan, 0.0, w).abs().amax(1, keepdim=True),
+                                                            min=1.0)
+        fin = ~nan
+        assert bool((torch.abs(got - w)[fin] <= tol.expand_as(w)[fin]).all())
+    assert nan_edges >= 2  # the non-finite vertices reached the outputs
 
 
 @pytest.mark.cuda

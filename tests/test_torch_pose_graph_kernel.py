@@ -293,3 +293,113 @@ def test_wrapper_refusals(branch, case):
     if case == "cpu":  # on the CPU the wrapper takes the plain version
         for a, b in zip(pk.linearize(*args), branch["plain"]):
             assert torch.equal(a, b)
+
+
+# The kernel's direction classes: the columns of Ji (vertex i) or Jj (j)
+# whose seed each specialised tangent chain takes.
+CLASS_COLUMNS = {"rho": [0, 1, 2], "phi": [3, 4, 5], "sigma": [6]}
+
+
+def _non_finite_edges():
+    """`branch_edges(11)` with a NaN rotation entry at vertex 3, an infinite
+    translation at vertex 5 and scales 0, -1 and inf at vertices 6-8: every
+    edge touching them has a primal value that is not finite, so the kernel
+    takes the generic chain there and the specialised ones elsewhere. (On
+    the edges of vertex 8, r's rho parts from the plain version's: NaN
+    against the plain solve's inf, in both chains; ROADMAP queue 3.)"""
+    R, t, s, *rest = pk.branch_edges(11)
+    R, t, s = R.clone(), t.clone(), s.clone()
+    R[3, 1, 1] = float("nan")
+    t[5, 0] = float("inf")
+    s[6], s[7], s[8] = 0.0, -1.0, float("inf")
+    return (R, t, s, *rest)
+
+
+@pytest.fixture(scope="module")
+def split_outputs(branch):
+    """For a case, (the host build's, the plain version's, the generic
+    chain's) outputs on its inputs, each computed once for the module's
+    class and vertex cases."""
+    cache = {}
+
+    def get(case):
+        if case not in cache:
+            if case == "branch_edges":
+                args, plain = branch["args"], branch["plain"]
+            else:
+                args = _non_finite_edges()
+                plain = pk.linearize_plain(*args)
+            cache[case] = (pk.host(*args), plain, pk.host(*args, generic=True))
+        return cache[case]
+
+    return get
+
+
+def _same_bits_or_both_nan(a, b):
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(a[~nan], b[~nan])
+
+
+@pytest.mark.parametrize("case", ["branch_edges", "non_finite"])
+@pytest.mark.parametrize("vertex", ["i", "j"])
+@pytest.mark.parametrize("cls", list(CLASS_COLUMNS))
+def test_class_chain_equals_jvp_of_plain(split_outputs, cls, vertex, case):
+    """Each direction class's specialised tangent chain (the kernel's phase
+    2, run by the host build) against torch.func.jvp of the plain chain
+    along the class's seeds (`linearize_plain`'s columns): NaN exactly where
+    the plain version has it, the rest within one float32 rounding of the
+    edge's largest entry; and against the generic dual chain
+    (`host(..., generic=True)`, the same source) bit for bit."""
+    cols = CLASS_COLUMNS[cls]
+    k = 1 if vertex == "i" else 2
+    got, want, generic = (out[k][..., cols] for out in split_outputs(case))
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    assert bool(nan.any()) == (case == "non_finite")
+    scale = torch.clamp(torch.where(nan, 0.0, want).abs().amax(dim=(1, 2), keepdim=True), min=1.0)
+    assert bool((torch.abs(got - want)[~nan] <= (2.0**-22 * scale).expand_as(want)[~nan]).all())
+    assert _same_bits_or_both_nan(got, generic)
+
+
+def test_operation_count_is_the_generic_chains():
+    """`edge_ops` counts the generic chain, as before the split form: the same counts on
+    chip_smoke.py's padded ring (its bound) and on the branch edges."""
+    import chip_smoke
+
+    primal, tangent = pk.edge_ops(*chip_smoke.pose_graph_args(chip_smoke.padded_ring("cpu")))
+    assert (int(primal.sum()), int(tangent.sum())) == (221_295, 1_476_819)
+    assert tangent.sum(0).tolist() == [16023] * 3 + [187742] * 3 + [32884] + [43491] * 3 + [213684] * 3 + [61115]
+    primal, tangent = pk.edge_ops(*pk.branch_edges(SEED))
+    assert (int(primal.sum()), int(tangent.sum())) == (14_822, 106_227)
+
+
+def _host_into(args, fill):
+    """The host build's outputs written into buffers filled with `fill`."""
+    k, e = args[0].shape[0], args[3].shape[0]
+    out = [torch.full((e, 7), fill), torch.full((e, 7, 7), fill), torch.full((e, 7, 7), fill),
+           torch.full((e,), 12345, dtype=torch.int32)]
+    pk.build_host()
+    rc = pk._host_lib.pose_graph_edges_host(*(x.data_ptr() for x in args[:3]), k,
+                                            *(x.data_ptr() for x in args[3:]), e, *(o.data_ptr() for o in out))
+    assert rc == 0
+    return out
+
+
+def test_host_build_at_a_ragged_size():
+    """65 edges (46 of the drifted ring, 19 padded): the last block holds
+    one edge, most of its lanes none. Every output written (none left at
+    the fill), the same function as the plain version and the generic
+    chain's bits; padded edges zeros."""
+    p = _ring_problem(pad=19)
+    args = (p.vert_R, p.vert_t, p.vert_s, p.edge_i, p.edge_j, p.meas_R, p.meas_t, p.meas_s, p.edge_valid)
+    assert args[3].shape[0] == 65
+    out = _host_into(args, 777.0)
+    for x in out:
+        assert not bool((x == (12345 if x.dtype == torch.int32 else 777.0)).any())
+    want = pk.linearize_plain(*args)
+    for name, a, b in zip(("r", "Ji", "Jj"), out, want):
+        _close(name, a, b)
+    for a, b in zip(out, pk.host(*args, generic=True)):
+        assert _same_bits_or_both_nan(a.float(), b.float())
+    valid = args[-1]
+    assert not any(bool(x[~valid].any()) for x in out)

@@ -8,7 +8,9 @@ Each case is marked `cuda` and skips without a card. Inputs:
 `synthetic_pairs`' 64 pairs of an estimate of unit scale and one of scale
 1.7 at rotation angles 0, 1e-3, 0.3 and 2.0, each with points at depth 0
 (the clamp to 1e-6) or behind either camera and zero rows at their head,
-and its 2,000 pairs at full width. Gates, the same as chip_smoke.py's: J
+its 2,000 pairs at full width, 33 pairs (a last warp of one pair) and 33
+pairs whose first warp mixes rows with a NaN, an infinite and a 1e30
+coordinate among the special ones. Gates, the same as chip_smoke.py's: J
 within 2^-22 of the row's largest entry (a row: J[i], one projection's 2x7
 derivative), NaN where the plain version has NaN, two launches
 bit-equal; one device launch a call (torch.profiler); a failed launch
@@ -48,11 +50,28 @@ def _args(case, dev):
     return sk.synthetic_pairs(CASES.index(case), 64, float(angle), SCALES[name], dev)
 
 
+def _mixed(dev):
+    """33 pairs whose first warp of 32 mixes every kind of row: the special
+    rows (depth clamped, behind either camera, zeros), a NaN, a +inf and a
+    -inf coordinate and a point at 1e30."""
+    S, x1c, x2c, cam = sk.synthetic_pairs(11, 33, 2.0, 1.7, dev)
+    x2c[7, 1] = float("nan")
+    x1c[9, 0] = float("inf")
+    x1c[10, 2] = -float("inf")
+    x2c[11] = 1e30
+    return S, x1c, x2c, cam
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", CASES + ["full_width", "nan_row"])
+@pytest.mark.parametrize("case", CASES + ["full_width", "nan_row", "ragged", "mixed"])
 def test_kernel_equals_plain(case):
     dev = _card()
-    args = _args(CASES[3] if case == "nan_row" else case, dev)
+    if case == "ragged":  # 33 pairs: the second warp of each (family, direction) holds one
+        args = sk.synthetic_pairs(33, 33, 0.3, 1.2, dev)
+    elif case == "mixed":
+        args = _mixed(dev)
+    else:
+        args = _args(CASES[3] if case == "nan_row" else case, dev)
     if case == "nan_row":
         args[2][7, 1] = float("nan")
     launches = sk.launches
@@ -63,7 +82,7 @@ def test_kernel_equals_plain(case):
     assert J.shape == (2 * args[1].shape[0], 2, 7) and torch.equal(J.view(torch.int32), again.view(torch.int32))
     report = chip_smoke.sim3_opt_against_plain(J, want)
     assert all(report["gates"].values()), report
-    assert bool(torch.isnan(J).any()) == (case == "nan_row")
+    assert bool(torch.isnan(J).any()) == (case in ("nan_row", "mixed"))
 
 
 @pytest.mark.cuda

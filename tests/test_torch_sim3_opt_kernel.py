@@ -253,3 +253,76 @@ def test_sim3_refine_through_the_host_build_reads_nothing_back(monkeypatch):
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     assert sk in programs.KERNELS and sim3_kernel in programs.KERNELS
+
+
+# The direction classes: the columns of J whose seeds reach t alone (rho),
+# R and t (phi), t and s (sigma).
+CLASS_COLUMNS = {"rho": [0, 1, 2], "phi": [3, 4, 5], "sigma": [6]}
+
+
+def _non_finite_rows():
+    """33 pairs at 2 rad, scale 1.7, with a NaN, +inf and -inf coordinate
+    and a point at 1e30 (finite), beside the special rows."""
+    S, x1c, x2c, cam = sk.synthetic_pairs(11, 33, 2.0, 1.7)
+    x2c[7, 1] = float("nan")
+    x1c[9, 0] = float("inf")
+    x1c[10, 2] = -float("inf")
+    x2c[11] = 1e30
+    return S, x1c, x2c, cam
+
+
+@pytest.fixture(scope="module")
+def split_outputs():
+    """For a case, (the host build's, the plain version's) J on its
+    inputs, each computed once for the module's class cases."""
+    cache = {}
+
+    def get(case):
+        if case not in cache:
+            args = sk.synthetic_pairs(3, M, 2.0, 1.7) if case == "special_rows" else _non_finite_rows()
+            cache[case] = (sk.host(*args), sk.jacobian_plain(*args))
+        return cache[case]
+
+    return get
+
+
+@pytest.mark.parametrize("case", ["special_rows", "non_finite"])
+@pytest.mark.parametrize("cls", list(CLASS_COLUMNS))
+def test_class_chain_equals_jvp_of_plain(split_outputs, cls, case):
+    """Each direction class's columns of the kernel's items (run by the
+    host build) against torch.func.jvp of the plain chain along the class's
+    seeds (`jacobian_plain`'s columns): NaN exactly where the plain version
+    has it, the finite rows torch.equal, and every other entry (inf
+    included) equal to the plain version's."""
+    cols = CLASS_COLUMNS[cls]
+    got, want = (out[..., cols] for out in split_outputs(case))
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    assert bool(nan.any()) == (case == "non_finite")
+    finite = ~nan.flatten(1).any(dim=1)
+    assert torch.equal(got[finite], want[finite])
+    assert torch.equal(got[~nan], want[~nan])
+
+
+def test_operation_count_is_the_generic_chains():
+    """`pair_ops` gives the counts it gave before the kernel's redesign: the same counts at
+    chip_smoke.py's full width (its bound) and on 64 pairs."""
+    import chip_smoke
+
+    pose, primal, tangent = sk.pair_ops(*chip_smoke.sim3_opt_full_width_args("cpu"))
+    assert pose.tolist() == [20, 6, 6, 6, 24, 24, 24, 25]
+    assert (int(primal.sum()), int(tangent.sum())) == (100_000, 373_800)
+    _, primal, tangent = sk.pair_ops(*sk.synthetic_pairs(5, 64, 0.3, 1.7))
+    assert (int(primal.sum()), int(tangent.sum())) == (3_200, 11_824)
+
+
+def test_host_build_at_a_ragged_size():
+    """33 pairs: the second group of 32 pairs holds one. Every entry written
+    (none left at the fill) and the plain version's J, bit for bit."""
+    S, x1c, x2c, cam = sk.synthetic_pairs(33, 33, 0.3, 1.2)
+    J = torch.full((66, 2, 7), 777.0)
+    sk.build_host()
+    rc = sk._host_lib.sim3_opt_jacobian_host(*sk._pointers(S, x1c, x2c), 33, float(cam.fx), float(cam.fy),
+                                             J.data_ptr())
+    assert rc == 0 and not bool((J == 777.0).any())
+    assert torch.equal(J, sk.jacobian_plain(S, x1c, x2c, cam))
